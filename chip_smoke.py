@@ -1,10 +1,16 @@
 #!/usr/bin/env python3
 """GPU smoke test of the PyTorch port (stringsearchlib_tpu_torch).
 
-Drives the port's main path once on one CUDA card: the headline batch
-search of ``bench.py`` (product-name corpus, uniform weights, 512-query
-batches at threshold 0.3, top-100) through ``SearchEngine.search_batch``,
-which routes it to the hand-written K1 kernel and the integer h* finish.
+Drives the port's two candidate paths once each on one CUDA card, through
+``SearchEngine.search_batch``:
+
+  * the headline batch search of ``bench.py`` (product-name corpus, uniform
+    weights, 512-query batches at threshold 0.3, top-100), which routes to
+    the hand-written K1 kernel and the integer h* finish;
+  * the weighted 2-D index of ``bench.py`` (``index2d_1m_rows``: 1M rows of
+    product name + gram-rich description, weights [1.0, 0.4]), whose packed
+    bitmap is over budget, so it routes to the packed bucket sketch through
+    the hand-written K2 kernel.
 
 Phases, each printing one line with its seconds; any failure raises, so the
 script exits non-zero and prints no final ``ok`` line:
@@ -23,12 +29,22 @@ script exits non-zero and prints no final ``ok`` line:
      counts at B = 256 and at the engine's step, bit-identical to the plain
      version; both timed with CUDA events;
   6. exactness: 32 queries again through the dense path, requiring the
-     same (score, key length) tie groups holding the same keys.
+     same (score, key length) tie groups holding the same keys;
+  7. K2 against its plain version on random tables (Gp 128 / 2816 / 8192,
+     B 16 / 256 / 512, sums 31 / 127): bit-identical hits;
+  8. 2-D path: builds the weighted 2-D index on the card and its packed
+     sketch, runs one warm-up and three timed batches of 1,024 queries,
+     requires the sketch_packed route, K2 launches and no plain calls;
+  9. K2 on the real sketch table with real queries' bucket counts at
+     B = 256 and at the engine's step, bit-identical to the plain version;
+     both timed with CUDA events;
+  10. 2-D exactness: 32 of those queries again through the dense path, the
+     same tie groups.
 
 The line before the last is a JSON object describing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
 
-Usage:  python3 chip_smoke.py [--keys N]
+Usage:  python3 chip_smoke.py [--keys N] [--rows2d N]
 """
 
 from __future__ import annotations
@@ -47,6 +63,7 @@ os.environ.setdefault("NUMPY_MADVISE_HUGEPAGE", "0")
 _ROOT = os.path.dirname(os.path.abspath(__file__))
 _T0 = time.perf_counter()
 N_QUERIES = 512  # one batch of the headline (bench.py)
+N_QUERIES_2D = 1024  # the 2-D config's query count (bench.py)
 REPS = 3
 N_SINGLE = 64
 
@@ -100,10 +117,19 @@ def _random_case(gen, b: int, gp: int, ntiles: int, total: int, device):
     return planes.to(device), qcnt.to(device)
 
 
+def _kernel_of(name: str):
+    """'k1' / 'k2' for the two instantiations of csrc/bitmap_hits.cu's
+    kernel (demangled or mangled name), else None."""
+    if "bitmap_hits_kernel" not in name:
+        return None
+    return "k1" if ("<true>" in name or "ILb1E" in name) else "k2"
+
+
 def _trace(run) -> dict:
     """One traced call of ``run`` under torch.profiler: device time by
-    kernel name (top 8), K1's share, and the device's busy and idle share
-    of the call's wall time (kernel intervals merged)."""
+    kernel name (top 8) and by aten op (top 10), K1's and K2's shares, and
+    the device's busy and idle share of the call's wall time (kernel
+    intervals merged)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -127,14 +153,28 @@ def _trace(run) -> dict:
         if b > end:
             busy += b - max(a, end)
             end = b
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    k1 = sum(v for k, v in by_name.items() if "bitmap_hits_bmax" in k)
+    short: dict = {}  # printed names are cut; sum the kernels they merge
+    for name, v in by_name.items():
+        short[name[:100]] = short.get(name[:100], 0.0) + v
+    top = sorted(short.items(), key=lambda kv: -kv[1])[:8]
+    ops = []
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if e.key.startswith("aten::") and t > 0:
+            ops.append((e.key, t, e.count))
+    ops.sort(key=lambda x: -x[1])
+    k1 = sum(v for k, v in by_name.items() if _kernel_of(k) == "k1")
+    k2 = sum(v for k, v in by_name.items() if _kernel_of(k) == "k2")
     return {
         "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy / 1e3,
         "device_idle_share": max(0.0, 1.0 - busy / wall_us),
         "k1_ms": k1 / 1e3,
-        "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top},
+        "k2_ms": k2 / 1e3,
+        "top_kernels_ms": {k: v / 1e3 for k, v in top},
+        "top_ops_device_ms": {f"{k} x{n}": t / 1e3 for k, t, n in ops[:10]},
         "n_kernel_launches": len(spans),
     }
 
@@ -149,6 +189,33 @@ def _max_abs_err(a, b, rows: int = 32) -> int:
         d = a[r : r + rows].to(torch.int16) - b[r : r + rows].to(torch.int16)
         err = max(err, int(d.abs().max()))
     return err
+
+
+def _check_results(results, queries, floor, limit) -> None:
+    """One row per query, at most ``limit`` results, every score finite
+    and >= ``floor`` (the threshold times the smallest edge weight: the
+    threshold gates a term's unweighted score)."""
+    if len(results) != len(queries) or any(r is None for r in results):
+        raise AssertionError("missing results")
+    for keys, scores in results:
+        if len(keys) != len(scores) or len(keys) > limit:
+            raise AssertionError("malformed result row")
+        if any(not (math.isfinite(s) and s >= floor) for s in scores):
+            raise AssertionError("non-finite score or score below the floor")
+
+
+def _check_exact(engine, queries, results, threshold, limit) -> None:
+    """The same queries through the dense path: equal (score, key length)
+    tie groups holding the same keys."""
+    dense = engine.search_batch(
+        queries, threshold, limit, batch_bucket=512, mode="dense"
+    )
+    import torch
+
+    torch.cuda.synchronize()
+    for q, got, want in zip(queries, results, dense):
+        if _tie_groups(*got) != _tie_groups(*want):
+            raise AssertionError(f"candidate and dense results differ for {q!r}")
 
 
 def _tie_groups(keys, scores):
@@ -169,6 +236,8 @@ def np_tile(slots, b: int):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--keys", type=int, default=10_000_000)
+    ap.add_argument("--rows2d", type=int, default=1_000_000,
+                    help="rows of the weighted 2-D index (phase 8)")
     args = ap.parse_args()
 
     # -- 1. device ----------------------------------------------------------
@@ -194,13 +263,17 @@ def main() -> None:
     # -- 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
     sys.path.insert(0, _ROOT)
+    import numpy as np
+
     import bench
     from stringsearchlib_tpu_torch.config import IndexConfig
     from stringsearchlib_tpu_torch.index import build as buildmod
     from stringsearchlib_tpu_torch.index import native as nativelib
     from stringsearchlib_tpu_torch.ops import bitmap_matmul as bmm
+    from stringsearchlib_tpu_torch.ops.bitmap_matmul import g_padding
     from stringsearchlib_tpu_torch.search.candidates import query_counts
     from stringsearchlib_tpu_torch.search.engine import SearchEngine
+    from stringsearchlib_tpu_torch.search.sketch import bucket_of
 
     so = bmm.build_kernel()
     bmm._lib()
@@ -265,8 +338,8 @@ def main() -> None:
     queries = [bench._mutate(rng, rng.choice(words)) for _ in range(N_QUERIES)]
     threshold, limit = 0.3, 100
     torch.cuda.reset_peak_memory_stats()
-    bmm.KERNEL_LAUNCHES = 0
-    bmm.REF_CALLS = 0
+    bmm.K1_LAUNCHES = 0
+    bmm.K1_REF_CALLS = 0
     t1 = time.perf_counter()
     results = engine.search_batch(queries, threshold, limit, batch_bucket=512)
     torch.cuda.synchronize()
@@ -277,21 +350,15 @@ def main() -> None:
         results = engine.search_batch(queries, threshold, limit, batch_bucket=512)
         torch.cuda.synchronize()
         rep_s.append(time.perf_counter() - t1)
-    launches = bmm.KERNEL_LAUNCHES
-    ref_calls = bmm.REF_CALLS
+    launches = bmm.K1_LAUNCHES
+    ref_calls = bmm.K1_REF_CALLS
     routing = dict(engine.last_routing)
     peak_search = int(torch.cuda.max_memory_allocated())
     if routing.get("variant") != "bitmap_kernel" or not routing.get("hstar"):
         raise AssertionError(f"main path did not take bitmap_kernel + h*: {routing}")
     if launches <= 0 or ref_calls:
         raise AssertionError(f"K1 launches={launches} plain calls={ref_calls}")
-    if len(results) != len(queries) or any(r is None for r in results):
-        raise AssertionError("missing results")
-    for keys, scores in results:
-        if len(keys) != len(scores) or len(keys) > limit:
-            raise AssertionError("malformed result row")
-        if any(not (math.isfinite(s) and s >= threshold) for s in scores):
-            raise AssertionError("non-finite score or score below the threshold")
+    _check_results(results, queries, threshold, limit)
     med = sorted(rep_s)[len(rep_s) // 2]
     engine.search(queries[0], threshold, limit)
     single_ms = []
@@ -350,23 +417,164 @@ def main() -> None:
 
     # -- 6. exactness against the dense path -----------------------------------
     t0 = time.perf_counter()
-    sub = queries[:32]
-    dense = engine.search_batch(sub, threshold, limit, batch_bucket=512, mode="dense")
-    torch.cuda.synchronize()
-    for q, got, want in zip(sub, results[:32], dense):
-        if _tie_groups(*got) != _tie_groups(*want):
-            raise AssertionError(f"candidate and dense results differ for {q!r}")
-    _phase("exactness", t0, queries=len(sub))
+    _check_exact(engine, queries[:32], results[:32], threshold, limit)
+    _phase("exactness", t0, queries=32)
+    del engine, host, bm, table, q, results
+    torch.cuda.empty_cache()
 
+    # -- 7. K2 vs plain, random tables -------------------------------------
+    t0 = time.perf_counter()
+    k2_err = 0
+    n_cases = 0
+    for gp in (128, 2816, 8192):
+        for b in (16, 256, 512):
+            for total in (31, 127):
+                planes, qcnt = _random_case(gen, b, gp, 3, total, dev)
+                hits = bmm.bitmap_hits(qcnt, planes)
+                rh = bmm.bitmap_hits_ref(qcnt, planes)
+                torch.cuda.synchronize()
+                err = int((hits.int() - rh.int()).abs().max())
+                k2_err = max(k2_err, err)
+                n_cases += 1
+                if err or not torch.equal(hits, rh):
+                    raise AssertionError(
+                        f"K2 differs from its plain version: gp={gp} b={b} "
+                        f"sum={total} max_abs_err={err}"
+                    )
+    _phase("k2_random", t0, cases=n_cases, max_abs_err=k2_err)
+
+    # -- 8. the weighted 2-D path (bench.py index2d_1m_rows) -------------------
+    t0 = time.perf_counter()
+    n2 = args.rows2d
+    rows = bench._product_names(n2, seed=5)
+    descs = bench._rich_names(n2, seed=6)
+    words2 = [x for kv in zip(rows, descs) for x in kv]
+    del rows, descs
+    weights2 = np.tile(np.array([1.0, 0.4]), n2)
+    t_corpus = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    host2 = buildmod.build_index(words2, 2, weights2, IndexConfig(), device=dev)
+    torch.cuda.synchronize()
+    build2_s = time.perf_counter() - t1
+    breakdown2 = dict(buildmod.LAST_BUILD_BREAKDOWN)
+    engine2 = SearchEngine(host2)
+    t1 = time.perf_counter()
+    sk = host2.sketch_tables(engine2.SKETCH_BUDGET)
+    torch.cuda.synchronize()
+    sketch_s = time.perf_counter() - t1
+    if sk is None:
+        raise AssertionError("no sketch table for the 2-D index")
+    inc, tg = sk[0], sk[1]
+    nb2, _ = host2.bitmap_layout()
+    print(json.dumps({
+        "build_breakdown_2d": breakdown2, "corpus_s": round(t_corpus, 2),
+        "build_s": round(build2_s, 2), "sketch_table_s": round(sketch_s, 2),
+        "n_rows": n2, "n_terms": host2.n_terms, "n_grams": host2.n_grams,
+        "uniform_weights": host2.uniform_weights,
+        "packed_bitmap_would_be_bytes": int(g_padding(host2.n_grams) * nb2),
+        "sketch_inc_bytes": int(inc.numel()), "sketch_inc_shape": list(inc.shape),
+        "sketch_tg_bytes": int(tg.numel() * 4), "d_log2": int(sk[3]),
+        "peak_mem_build_bytes": int(torch.cuda.max_memory_allocated()),
+    }), flush=True)
+
+    rng = random.Random(7)
+    queries2 = [bench._mutate(rng, rng.choice(words2)) for _ in range(N_QUERIES_2D)]
+    torch.cuda.reset_peak_memory_stats()
+    bmm.K1_LAUNCHES = bmm.K1_REF_CALLS = bmm.K2_LAUNCHES = bmm.K2_REF_CALLS = 0
+    t1 = time.perf_counter()
+    results2 = engine2.search_batch(queries2, threshold, limit, batch_bucket=512)
+    torch.cuda.synchronize()
+    warm2_s = time.perf_counter() - t1
+    rep2_s = []
+    for _ in range(REPS):
+        t1 = time.perf_counter()
+        results2 = engine2.search_batch(queries2, threshold, limit, batch_bucket=512)
+        torch.cuda.synchronize()
+        rep2_s.append(time.perf_counter() - t1)
+    k2_launches = bmm.K2_LAUNCHES
+    k2_ref_calls = bmm.K2_REF_CALLS
+    routing2 = dict(engine2.last_routing)
+    peak2 = int(torch.cuda.max_memory_allocated())
+    if routing2.get("variant") != "sketch_packed":
+        raise AssertionError(f"the 2-D path did not take sketch_packed: {routing2}")
+    if k2_launches <= 0 or k2_ref_calls:
+        raise AssertionError(f"K2 launches={k2_launches} plain calls={k2_ref_calls}")
+    # float32 products: threshold * 0.4 less one part in 1e6
+    _check_results(results2, queries2, threshold * 0.4 * (1 - 1e-6), limit)
+    med2 = sorted(rep2_s)[len(rep2_s) // 2]
+    trace2 = _trace(
+        lambda: engine2.search_batch(queries2, threshold, limit, batch_bucket=512)
+    )
+    print(json.dumps({"traced_batch_2d": trace2}), flush=True)
+    print(json.dumps({
+        "qps_median_2d": N_QUERIES_2D / med2, "rep_s": rep2_s, "warmup_s": warm2_s,
+        "routing": routing2, "k2_launches": k2_launches,
+        "peak_mem_search_bytes": peak2,
+        "mean_results": sum(len(k) for k, _ in results2) / len(results2),
+    }), flush=True)
+    _phase("path_2d", t0, qps=round(N_QUERIES_2D / med2, 2), launches=k2_launches)
+
+    # -- 9. K2 on the real sketch table ---------------------------------------
+    t0 = time.perf_counter()
+    items2 = []
+    for pos, q in enumerate(queries2):
+        qnorm, qlen = engine2._normalize_query(q)
+        items2.append((pos, qnorm, qlen, None))
+    _, _, _, slots2, _, _, _ = engine2._prep_rows(items2, 32)
+    d_log2 = int(sk[3])
+    step2 = int(routing2["step"])
+    k2_real_err = 0
+    k2_timing = {}
+    for b in sorted({256, step2}):
+        q = query_counts(
+            bucket_of(torch.from_numpy(np_tile(slots2, b)).to(dev), d_log2),
+            1 << d_log2,
+        )
+        kh = bmm.bitmap_hits(q, inc)
+        rh = bmm.bitmap_hits_ref(q, inc)
+        torch.cuda.synchronize()
+        err = _max_abs_err(kh, rh)
+        k2_real_err = max(k2_real_err, err)
+        if err or not torch.equal(kh, rh):
+            raise AssertionError(f"K2 differs on the real sketch table at B={b}: {err}")
+        del kh, rh
+        torch.cuda.empty_cache()
+        k_ms = _cuda_ms(lambda: bmm.bitmap_hits(q, inc), 5)
+        p_ms = _cuda_ms(lambda: bmm.bitmap_hits_ref(q, inc), 1)
+        k2_timing[b] = {
+            "k2_ms": k_ms, "plain_ms": p_ms,
+            "hits_gb_per_s": b * tg.shape[0] / k_ms / 1e6,
+            "max_bucket_mult": int(q.max()),
+        }
+        torch.cuda.empty_cache()
+    print(json.dumps({"k2_timing": k2_timing, "card": smi}), flush=True)
+    _phase("k2_real_table", t0, max_abs_err=k2_real_err, step=step2)
+
+    # -- 10. 2-D exactness against the dense path --------------------------------
+    t0 = time.perf_counter()
+    _check_exact(engine2, queries2[:32], results2[:32], threshold, limit)
+    _phase("exactness_2d", t0, queries=32)
+
+    src = "stringsearchlib_tpu_torch/csrc/bitmap_hits.cu"
     print(json.dumps({"kernels": [{
         "name": "bitmap_hits_bmax",
         "route": "cuda",
-        "source": "stringsearchlib_tpu_torch/csrc/bitmap_hits.cu",
+        "source": src,
         "replaces": "stringsearchlib_tpu/ops/bitmap_matmul.py:401",
         "launches": launches,
         "max_abs_err": max(max_err, real_err),
         "ms": timing[256]["k1_ms"],
         "plain_ms": timing[256]["plain_ms"],
+    }, {
+        "name": "bitmap_hits",
+        "route": "cuda",
+        "source": src,
+        "replaces": "stringsearchlib_tpu/ops/bitmap_matmul.py:317",
+        "launches": k2_launches,
+        "max_abs_err": max(k2_err, k2_real_err),
+        "ms": k2_timing[256]["k2_ms"],
+        "plain_ms": k2_timing[256]["plain_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count,

@@ -1,25 +1,33 @@
-// Hit counts and 128-term block maxima from a bit-packed gram incidence.
+// Hit counts, and optionally their 128-term block maxima, from a bit-packed
+// gram incidence.
 //
-// Replaces the TPU kernel stringsearchlib_tpu/ops/bitmap_matmul.py:
-// bitmap_hits_bmax (a Pallas unpack + MXU matmul with a fused block-max
-// epilogue).  Contract, bit for bit the reference's:
+// Replaces two TPU kernels of stringsearchlib_tpu/ops/bitmap_matmul.py, one
+// Pallas unpack + MXU matmul under two entries:
+//
+//   K1 bitmap_hits_bmax (fused block-max epilogue) -> bitmap_hits_bmax_launch
+//   K2 bitmap_hits      (hits only)                -> bitmap_hits_launch
+//
+// Contract, bit for bit the reference's:
 //
 //   hits[b, t] = sum_g qcnt[b, g] * bit(g, t)        int8, term order
-//   bmax[b, c] = max(hits[b, 128c : 128c + 128])     int8
+//   bmax[b, c] = max(hits[b, 128c : 128c + 128])     int8 (K1 only)
 //
 // for sum_g qcnt[b, g] <= 127.  Table layout is the reference's plane-tiled,
 // tile-major form: planes (ntiles, Gp, 512) bytes, and bit p of byte k of
 // tile j holds term j*4096 + p*512 + k.  So one 16-byte word of a row slice
 // yields, for each of the 8 bit planes, 16 consecutive terms.
 //
-// What bounds it on an H100 (main path: B = 512 queries, Gp = 2816 rows,
-// 10.03M padded terms): the table is 3.5 GB, the hits it writes are
-// B * 10.03M bytes (5.1 GB at B = 512), the block maxima 40 MB.  Read as a
-// dense product it is 1.4e13 MACs - most of them by zero, since a query
-// activates at most 30 gram rows.  So the kernel does the sparse product:
+// What bounds it on an H100.  K1's main path (B = 512 queries, Gp = 2816
+// gram rows, 10.03M padded terms): the table is 3.5 GB, the hits it writes
+// are B * 10.03M bytes (5.1 GB at B = 512), the block maxima 40 MB.  K2's
+// main path is the packed bucket sketch (B = 512, Gp = D = 8192 buckets,
+// 2M padded terms): a 2 GB table and 1 GB of hits.  Read as a dense product
+// either is ~1e13 MACs - most of them by zero, since a query activates at
+// most ~30 rows.  So the kernel does the sparse product:
 //
 //   * the wrapper compacts each query's nonzero qcnt columns into a list of
-//     (row, multiplicity), at most 127 entries, zero-terminated;
+//     (row, multiplicity), at most 127 entries, zero-terminated (a sketch
+//     bucket hit by several query grams carries their summed multiplicity);
 //   * one block per (layout tile, group of 32 queries); one warp per query
 //     at a time; each lane owns 16 bytes of the tile's 512-byte row slice
 //     and reads them with one coalesced 16-byte load per listed row (rows
@@ -30,14 +38,15 @@
 //     byte below 128, so no lane carries into its neighbour - 32 registers
 //     hold 128 counts;
 //   * each plane's 16 counts are stored as one 16-byte write (a warp writes
-//     512 contiguous bytes), and the 128-term block maxima come from the same
-//     registers: a byte-wise max over the lane's words, then a max over the
-//     8 lanes that share a block.
+//     512 contiguous bytes); with kBmax the 128-term block maxima come from
+//     the same registers: a byte-wise max over the lane's words, then a max
+//     over the 8 lanes that share a block.  K2 compiles that epilogue out,
+//     so the sketch path writes no block maxima it never reads.
 //
 // Cost per query row is one 16-byte load and 96 integer ops per lane, so the
 // kernel is bound by L2 reads of the listed rows and by the hits it writes,
-// not by the table stream.  The kernel allocates nothing and does not
-// synchronise.
+// not by the table stream.  Every offset is size_t.  The kernel allocates
+// nothing and does not synchronise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,20 +65,20 @@ __device__ __forceinline__ uint32_t byte_max(uint32_t x) {
   return max(a, b);
 }
 
+template <bool kBmax>
 __global__ void __launch_bounds__(kWarps * 32)
-bitmap_hits_bmax_kernel(const uint8_t* __restrict__ planes,
-                        const int32_t* __restrict__ rows,
-                        const int32_t* __restrict__ mults,
-                        int8_t* __restrict__ hits,
-                        int8_t* __restrict__ bmax,
-                        int n_queries, int gp, int ntiles, int vmax) {
+bitmap_hits_kernel(const uint8_t* __restrict__ planes,
+                   const int32_t* __restrict__ rows,
+                   const int32_t* __restrict__ mults,
+                   int8_t* __restrict__ hits,
+                   int8_t* __restrict__ bmax,
+                   int n_queries, int gp, int ntiles, int vmax) {
   const int tile = blockIdx.x;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const uint8_t* tile_base =
       planes + (size_t)tile * (size_t)gp * kBlkb + (size_t)lane * 16;
   const size_t hits_row = (size_t)ntiles * kTileLanes;
-  const size_t bmax_row = (size_t)ntiles * kSubs;
   const int q_end = min(n_queries, (int)(blockIdx.y + 1) * kQueriesPerBlock);
 
   for (int b = blockIdx.y * kQueriesPerBlock + warp; b < q_end; b += kWarps) {
@@ -97,35 +106,55 @@ bitmap_hits_bmax_kernel(const uint8_t* __restrict__ planes,
     }
     int8_t* hout = hits + (size_t)b * hits_row + (size_t)tile * kTileLanes +
                    (size_t)lane * 16;
-    int8_t* bout = bmax + (size_t)b * bmax_row + (size_t)tile * kSubs;
 #pragma unroll
     for (int p = 0; p < 8; ++p) {
       *reinterpret_cast<uint4*>(hout + p * kBlkb) =
           make_uint4(acc[p][0], acc[p][1], acc[p][2], acc[p][3]);
-      uint32_t mx = byte_max(__vmaxu4(__vmaxu4(acc[p][0], acc[p][1]),
-                                      __vmaxu4(acc[p][2], acc[p][3])));
-      mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      // lanes 8c..8c+7 cover bytes 128c..128c+127 of plane p: block p*4 + c
-      if ((lane & 7) == 0) bout[p * 4 + (lane >> 3)] = (int8_t)mx;
+      if constexpr (kBmax) {
+        int8_t* bout = bmax + (size_t)b * ntiles * kSubs + (size_t)tile * kSubs;
+        uint32_t mx = byte_max(__vmaxu4(__vmaxu4(acc[p][0], acc[p][1]),
+                                        __vmaxu4(acc[p][2], acc[p][3])));
+        mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        // lanes 8c..8c+7 cover bytes 128c..128c+127 of plane p: block p*4+c
+        if ((lane & 7) == 0) bout[p * 4 + (lane >> 3)] = (int8_t)mx;
+      }
     }
   }
 }
 
-}  // namespace
-
-extern "C" int bitmap_hits_bmax_launch(const void* planes, const void* rows,
-                                       const void* mults, void* hits,
-                                       void* bmax, int n_queries, int gp,
-                                       int ntiles, int vmax, void* stream) {
+template <bool kBmax>
+int launch(const void* planes, const void* rows, const void* mults,
+           void* hits, void* bmax, int n_queries, int gp, int ntiles,
+           int vmax, void* stream) {
   const dim3 grid((unsigned)ntiles,
                   (unsigned)((n_queries + kQueriesPerBlock - 1) /
                              kQueriesPerBlock));
-  bitmap_hits_bmax_kernel<<<grid, kWarps * 32, 0,
-                            reinterpret_cast<cudaStream_t>(stream)>>>(
+  bitmap_hits_kernel<kBmax><<<grid, kWarps * 32, 0,
+                              reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(planes), static_cast<const int32_t*>(rows),
       static_cast<const int32_t*>(mults), static_cast<int8_t*>(hits),
       static_cast<int8_t*>(bmax), n_queries, gp, ntiles, vmax);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K1: hits and 128-term block maxima
+extern "C" int bitmap_hits_bmax_launch(const void* planes, const void* rows,
+                                       const void* mults, void* hits,
+                                       void* bmax, int n_queries, int gp,
+                                       int ntiles, int vmax, void* stream) {
+  return launch<true>(planes, rows, mults, hits, bmax, n_queries, gp, ntiles,
+                      vmax, stream);
+}
+
+// K2: hits only
+extern "C" int bitmap_hits_launch(const void* planes, const void* rows,
+                                  const void* mults, void* hits,
+                                  int n_queries, int gp, int ntiles,
+                                  int vmax, void* stream) {
+  return launch<false>(planes, rows, mults, hits, nullptr, n_queries, gp,
+                       ntiles, vmax, stream);
 }

@@ -110,6 +110,7 @@ class HostIndex:
     _key_hash_cache: Optional[tuple] = None
     _dp_bucket_cache: Optional[tuple] = None
     _bitmap_cache: object = dataclasses.field(default=None, repr=False)
+    _sketch_cache: object = dataclasses.field(default=None, repr=False)
     _prim_table_cache: object = dataclasses.field(default=None, repr=False)
 
     @property
@@ -221,6 +222,16 @@ class HostIndex:
                 del pos, rows, col, bit, flat, val
         return words.view(torch.int8).view(ntiles, n_rows, BLKB)
 
+    def bitmap_fits(self, budget_bytes: int = 6 << 30) -> bool:
+        """Whether ``bitmap_tables(budget_bytes)`` holds a table, decided
+        from the shapes without building it."""
+        from ..ops.bitmap_matmul import g_padding
+
+        nb, _ = self.bitmap_layout()
+        tl = int(self.device.long_lengths.shape[0])
+        g = self.n_grams
+        return g > 0 and tl > 0 and g_padding(g) * nb <= budget_bytes
+
     def bitmap_tables(self, budget_bytes: int = 6 << 30):
         """(bm int8 (ntiles, G_pad, BLKB) tile-major packed incidence,
         tl_pad), or None over ``budget_bytes``.  Built on the device from the
@@ -229,18 +240,71 @@ class HostIndex:
         if self._bitmap_cache is not None:
             bm = self._bitmap_cache
             return None if bm is False else bm
-        from ..ops.bitmap_matmul import PAD_LANES, g_padding
+        from ..ops.bitmap_matmul import g_padding
 
-        g = self.n_grams
-        tl = int(self.device.long_lengths.shape[0])
-        tl_pad = -(-max(tl, 1) // PAD_LANES) * PAD_LANES
-        g_pad = g_padding(g)
-        if g == 0 or tl == 0 or g_pad * (tl_pad // 8) > budget_bytes:
+        if not self.bitmap_fits(budget_bytes):
             self._bitmap_cache = False
             return None
-        bm = self._incidence_bits3(g_pad, tl_pad // 8)
+        nb, tl_pad = self.bitmap_layout()
+        bm = self._incidence_bits3(g_padding(self.n_grams), nb)
         self._bitmap_cache = (bm, tl_pad)
         return self._bitmap_cache
+
+    def sketch_tables(self, budget_bytes: int = 6 << 30, max_tgw: int = 128,
+                      packed: bool = True):
+        """Packed bucket-sketch tables (search.sketch): (inc (tl_pad/4096, D,
+        BLKB) int8 tile-major incidence, tg (tl_pad, TGW) int32 term->gram
+        slots, wmax_pad (tl_pad,) float32 per-term weight bound, d_log2), or
+        None when the long tier is too small or too wide for the path, or
+        D = 128 buckets already pass ``budget_bytes``.
+
+        The reference's rules: tl_pad is a multiple of 16384 terms; D starts
+        at 2^13 and halves while over budget.  Built on the index's device
+        from the resident token matrix for narrow g <= 3, from numpy gram ids
+        otherwise; cached per index.  Only the packed form is ported (the
+        unpacked one serves queries over 127 gram windows)."""
+        if not packed:
+            raise NotImplementedError("the unpacked sketch is not ported")
+        if self._sketch_cache is not None:
+            sk = self._sketch_cache
+            return None if sk is False else sk
+        from ..search import sketch as sketchlib
+
+        d = self.device
+        tl = int(d.long_lengths.shape[0])
+        g = self.config.gram_size
+        tgw = int(d.long_tokens.shape[1]) - g + 1
+        if tl == 0 or self.n_grams == 0 or tgw < 1 or tgw > max_tgw:
+            self._sketch_cache = False
+            return None
+        tile = sketchlib._TILE
+        tl_pad = -(-tl // tile) * tile
+        bytes_per_d = tl_pad // 8
+        d_log2 = 13
+        while d_log2 > 7 and (1 << d_log2) * bytes_per_d > budget_bytes:
+            d_log2 -= 1
+        if (1 << d_log2) * bytes_per_d > budget_bytes:
+            self._sketch_cache = False
+            return None
+        if not self.config.wide and g <= 3:
+            gram_ids32 = torch.from_numpy(
+                self.gram_ids.astype(np.int32)
+            ).to(d.device)
+            inc, tg = sketchlib.build_sketch_device_packed(
+                d.long_tokens, d.long_lengths, gram_ids32, gram_size=g,
+                d_log2=d_log2, tl_pad=tl_pad, tgw=tgw,
+            )
+        else:
+            inc, tg = sketchlib.build_sketch_host(
+                d.long_tokens.cpu().numpy(), d.long_lengths.cpu().numpy(),
+                self.lookup_gram_slots, g, self.config.wide, self.vocab,
+                d_log2, tl_pad, tgw, device=d.device,
+            )
+        ts = int(d.short_lengths.shape[0])
+        wmax_pad = torch.zeros(tl_pad, dtype=torch.float32, device=d.device)
+        wmax_pad[:tl] = d.term_wmax[ts:]
+        self._sketch_cache = (inc, tg, wmax_pad, d_log2)
+        return self._sketch_cache
 
     def bitmap_layout(self):
         """(nb, tl_pad) of the packed-plane layout without building it."""

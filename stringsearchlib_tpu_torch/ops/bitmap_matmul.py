@@ -1,4 +1,4 @@
-"""Hit counts from a bit-packed gram incidence: kernel K1 on Hopper.
+"""Hit counts from a bit-packed gram incidence: kernels K1 and K2 on Hopper.
 
 PyTorch counterpart of ``stringsearchlib_tpu.ops.bitmap_matmul``.  The
 layout helpers are the reference's, so tables are byte-identical:
@@ -6,11 +6,13 @@ bytes are grouped into tiles of ``BLKB``; bit ``p`` of byte ``j*BLKB + k``
 holds term ``j*8*BLKB + p*BLKB + k``; resident tables are tile-major
 ``(ntiles, Gp, BLKB)`` int8 (HostIndex.bitmap_tables).
 
-``bitmap_hits_bmax`` keeps the reference's signature and layouts.  On a
-CUDA tensor it launches the hand-written kernel in ``csrc/bitmap_hits.cu``
-(built with nvcc for sm_90a into ``build/kernels/`` at first use, bound
-with ctypes); on a CPU tensor it runs ``bitmap_hits_bmax_ref``, the plain
-PyTorch version.  Nothing else chooses between the two: a CUDA tensor
+``bitmap_hits_bmax`` (K1: hits and 128-term block maxima) and
+``bitmap_hits`` (K2: hits only, the packed sketch's front end) keep the
+reference's contracts and layouts.  On a CUDA tensor each launches its
+entry of the hand-written kernel in ``csrc/bitmap_hits.cu`` (built with
+nvcc for sm_90a into ``build/kernels/`` at first use, bound with ctypes);
+on a CPU tensor it runs its plain PyTorch version (``bitmap_hits_bmax_ref``,
+``bitmap_hits_ref``).  Nothing else chooses between the two: a CUDA tensor
 launches the kernel or raises.
 
 The reference's pair dots, 31-window gate, G tiling and VMEM budget exist
@@ -43,10 +45,15 @@ _SUBS = TILE_LANES // _BMAX_BLK  # 128-term blocks per layout tile (32)
 # most nonzero qcnt columns a query can hold under the <= 127 contract
 _VMAX = 127
 
-# launches of the CUDA kernel, and calls of the plain version made by the
-# wrapper for CPU tensors; plain integers that callers may reset
-KERNEL_LAUNCHES = 0
-REF_CALLS = 0
+# launches of each CUDA kernel (K1 bitmap_hits_bmax, K2 bitmap_hits), and
+# calls of its plain version made by the wrapper for CPU tensors; plain
+# integers that callers may reset
+K1_LAUNCHES = 0
+K1_REF_CALLS = 0
+K2_LAUNCHES = 0
+K2_REF_CALLS = 0
+# bytes of the float32 operand the plain versions unpack at a time
+_PLAIN_CHUNK_BYTES = 1 << 30
 
 _ROOT = os.path.join(os.path.dirname(__file__), "..", "..")
 _SRC = os.path.abspath(
@@ -95,7 +102,7 @@ def build_kernel() -> str:
         return so
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the K1 kernel cannot be built")
+        raise RuntimeError("nvcc not found: the K1/K2 kernels cannot be built")
     tmp = f"{so}.{os.getpid()}.tmp"
     cmd = [
         nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -113,11 +120,16 @@ def _lib():
     with _LIB_LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(build_kernel())
-            fn = lib.bitmap_hits_bmax_launch
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+            k1 = lib.bitmap_hits_bmax_launch
+            k1.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
                 ctypes.c_void_p
             ]
-            fn.restype = ctypes.c_int
+            k1.restype = ctypes.c_int
+            k2 = lib.bitmap_hits_launch
+            k2.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+                ctypes.c_void_p
+            ]
+            k2.restype = ctypes.c_int
             _LIB = lib
     return _LIB
 
@@ -150,6 +162,15 @@ def _check(qcnt, planes):
         raise ValueError(f"qcnt on {qcnt.device}, planes on {planes.device}")
 
 
+def _cuda_operands(qcnt, planes):
+    """Checks a CUDA call's table and compacts its counts."""
+    if planes.device.type != "cuda":
+        raise ValueError(f"unsupported device {planes.device}")
+    if not planes.is_contiguous() or planes.data_ptr() % 16:
+        raise ValueError("planes must be contiguous and 16-byte aligned")
+    return _compact_qcnt(qcnt)
+
+
 def bitmap_hits_bmax(qcnt, planes):
     """qcnt (B, Gp) gram multiplicities (any numeric dtype; integer values,
     each row summing to <= 127)  x  planes (ntiles, Gp, BLKB) int8 packed
@@ -157,15 +178,11 @@ def bitmap_hits_bmax(qcnt, planes):
     bmax (B, ntiles*32) int8 per-128-term block maxima).
 
     CUDA tensors launch the K1 kernel; CPU tensors run the plain version."""
-    global KERNEL_LAUNCHES, REF_CALLS
+    global K1_LAUNCHES, K1_REF_CALLS
     _check(qcnt, planes)
     if planes.device.type == "cpu":
-        REF_CALLS += 1
+        K1_REF_CALLS += 1
         return bitmap_hits_bmax_ref(qcnt, planes)
-    if planes.device.type != "cuda":
-        raise ValueError(f"unsupported device {planes.device}")
-    if not planes.is_contiguous() or planes.data_ptr() % 16:
-        raise ValueError("planes must be contiguous and 16-byte aligned")
     b = qcnt.shape[0]
     ntiles, gp, _ = planes.shape
     hits = torch.empty((b, ntiles * TILE_LANES), dtype=torch.int8,
@@ -174,7 +191,7 @@ def bitmap_hits_bmax(qcnt, planes):
                        device=planes.device)
     if b == 0 or ntiles == 0:
         return hits, bmax
-    rows, mults = _compact_qcnt(qcnt)
+    rows, mults = _cuda_operands(qcnt, planes)
     lib = _lib()
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
@@ -185,37 +202,79 @@ def bitmap_hits_bmax(qcnt, planes):
         )
     if err != 0:
         raise RuntimeError(f"bitmap_hits_bmax kernel launch failed: cuda error {err}")
-    KERNEL_LAUNCHES += 1
+    K1_LAUNCHES += 1
     return hits, bmax
 
 
-def bitmap_hits_bmax_ref(qcnt, planes, chunk_tiles: int = 16):
-    """Plain PyTorch version of ``bitmap_hits_bmax``: unpack the planes and
-    take a float32 product, ``chunk_tiles`` layout tiles at a time.  Exact:
-    operands are 0/1 bits and integer counts whose sums stay <= 127 (TF32
-    is switched off for the product and restored after)."""
+def bitmap_hits(qcnt, planes):
+    """qcnt (B, Gp) multiplicities (integer values, each row summing to
+    <= 127)  x  planes (ntiles, Gp, BLKB) int8 packed incidence  ->  hits
+    (B, ntiles*TILE_LANES) int8 in term order: K1's hits without the block
+    maxima (the reference's ``bitmap_hits`` on a tile-major table).
+
+    CUDA tensors launch the K2 kernel; CPU tensors run the plain version."""
+    global K2_LAUNCHES, K2_REF_CALLS
+    _check(qcnt, planes)
+    if planes.device.type == "cpu":
+        K2_REF_CALLS += 1
+        return bitmap_hits_ref(qcnt, planes)
+    b = qcnt.shape[0]
+    ntiles, gp, _ = planes.shape
+    hits = torch.empty((b, ntiles * TILE_LANES), dtype=torch.int8,
+                       device=planes.device)
+    if b == 0 or ntiles == 0:
+        return hits
+    rows, mults = _cuda_operands(qcnt, planes)
+    lib = _lib()
+    with torch.cuda.device(planes.device):
+        stream = torch.cuda.current_stream(planes.device).cuda_stream
+        err = lib.bitmap_hits_launch(
+            planes.data_ptr(), rows.data_ptr(), mults.data_ptr(),
+            hits.data_ptr(), b, gp, ntiles, rows.shape[1], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"bitmap_hits kernel launch failed: cuda error {err}")
+    K2_LAUNCHES += 1
+    return hits
+
+
+def bitmap_hits_ref(qcnt, planes, chunk_tiles: int = 16):
+    """Plain PyTorch version of ``bitmap_hits``: unpack the planes and take
+    a float32 product, at most ``chunk_tiles`` layout tiles at a time (fewer
+    where the unpacked operand would pass 1 GB).  Exact: operands are 0/1
+    bits and integer counts whose sums stay <= 127 (TF32 is switched off
+    for the product and restored after)."""
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        return _hits_bmax_plain(qcnt, planes, chunk_tiles)
+        return _hits_plain(qcnt, planes, chunk_tiles)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
-def _hits_bmax_plain(qcnt, planes, chunk_tiles):
+def bitmap_hits_bmax_ref(qcnt, planes, chunk_tiles: int = 16):
+    """Plain PyTorch version of ``bitmap_hits_bmax``: ``bitmap_hits_ref``
+    and a max over each 128-term block."""
+    hits = bitmap_hits_ref(qcnt, planes, chunk_tiles)
+    b = qcnt.shape[0]
+    bmax = hits.view(b, planes.shape[0] * _SUBS, _BMAX_BLK).amax(dim=2)
+    return hits, bmax
+
+
+def _hits_plain(qcnt, planes, chunk_tiles):
     ntiles, gp, _ = planes.shape
     b = qcnt.shape[0]
+    step = max(1, min(chunk_tiles, _PLAIN_CHUNK_BYTES // (4 * gp * TILE_LANES)))
     q = qcnt.to(torch.float32)
     hits = torch.empty((b, ntiles * TILE_LANES), dtype=torch.int8,
                        device=planes.device)
     shifts = torch.arange(8, dtype=torch.uint8, device=planes.device)
-    for t0 in range(0, ntiles, chunk_tiles):
-        t1 = min(t0 + chunk_tiles, ntiles)
+    for t0 in range(0, ntiles, step):
+        t1 = min(t0 + step, ntiles)
         t = planes[t0:t1].view(torch.uint8)  # (nt, Gp, BLKB)
         bits = (t[:, :, None, :] >> shifts[None, None, :, None]) & 1
         m = bits.permute(1, 0, 2, 3).reshape(gp, (t1 - t0) * TILE_LANES)
         hits[:, t0 * TILE_LANES : t1 * TILE_LANES] = (
             q @ m.to(torch.float32)
         ).to(torch.int8)
-    bmax = hits.view(b, ntiles * _SUBS, _BMAX_BLK).amax(dim=2)
-    return hits, bmax
+    return hits

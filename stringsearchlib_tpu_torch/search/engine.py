@@ -11,10 +11,12 @@ an explicit batch dimension where the reference vmapped.
   -> stable sort (score desc, key length asc; ScoreComparer,
      nGramSearch.h:262-269) -> top-k slice + reached count.
 
-Batched searches on large indexes take the candidate route: K1 hit counts
-over the packed incidence, the integer h* finish, a selection-only retry
-on the retained hits, and the dense path for rows whose exactness guard
-still fails (``_cand_pass``).
+Batched searches on large indexes take a candidate route (``_cand_pass``):
+K1 hit counts over the packed incidence with the integer h* finish and a
+selection-only retry on the retained hits, or - for indexes whose packed
+incidence is over budget, weighted or not - K2 over the packed bucket
+sketch with exact rescoring and one full retry pass at wider budgets.  Rows
+whose exactness guard still fails take the dense path.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from ..index.build import HostIndex
 from .candidates import _BLK, _f32, candidates_bitmap_mxu, hstar_retry
 from .editdist import dp_match, dp_match_tiered
 from .overlap import gather_hits
+from .sketch import candidates_sketch
 
 _NEG_INF = float("-inf")
 
@@ -674,22 +677,47 @@ class SearchEngine:
     HSTAR_KB2 = 1024
     # kept-block fill target (x limit); 0 = keep every block the budget fits
     HSTAR_FILL = 0
+    # device-memory budget for the packed bucket sketch (search.sketch); D
+    # shrinks to fit, floor 128 buckets
+    SKETCH_BUDGET = 6 << 30
+    SKETCH_MIN_TERMS = 200_000
+    SKETCH_PACKED = True
+    # sketch first-pass budgets: superblocks and blocks kept per query
+    SK_KSB = 512
+    SK_KB = 1024
+    # batches this small on large indexes go to the reference's sorted-runs
+    # route when each query's posting mass fits RUNS_TINY_LANES; the port
+    # has no runs route, so they take the dense path
+    RUNS_TINY_BATCH = 8
+    RUNS_TINY_LANES = 1 << 20
 
     def _run_candidate_chunks(self, items, threshold, limit, batch_bucket, qp, out):
         """Candidate batches; returns the rows that need the dense path.
 
-        The first pass selects at CAND_TERMS_FAST-scale budgets; rows whose
-        exactness guard fails re-select from the retained hits at
-        CAND_TERMS-scale budgets (selection only, no second table stream),
-        and rows that still fail go dense."""
-        retry, _, _, sel_ctx = self._cand_pass(
+        The first pass selects at CAND_TERMS_FAST-scale budgets.  Rows whose
+        exactness guard fails re-select at CAND_TERMS-scale budgets: from
+        the retained hits on the h* route (selection only, no second table
+        stream), through one full second pass on the sketch route (which
+        records ``retry_full``).  Rows that still fail go dense."""
+        retry, n_used, n_avail, sel_ctx = self._cand_pass(
             items, threshold, limit, batch_bucket, qp, out,
             self.CAND_TERMS_FAST,
         )
         n_retry_fast = len(retry)
+        first_variant = self.last_routing["variant"]
+        n_sel = None
         if retry and sel_ctx is not None:
             retry = self._hstar_sel_retry(sel_ctx, threshold, limit, out)
-            self.last_routing["retry_sel"] = len(retry)
+            n_sel = len(retry)
+        elif (retry and first_variant != "dense"
+                and n_used < min(self.CAND_TERMS, n_avail)):
+            retry, _, _, _ = self._cand_pass(
+                retry, threshold, limit, batch_bucket, qp, out,
+                self.CAND_TERMS,
+            )
+            self.last_routing["retry_full"] = len(retry)
+        if n_sel is not None:
+            self.last_routing["retry_sel"] = n_sel
         self.last_routing["retry_fast"] = n_retry_fast
         self.last_routing["n_items"] = len(items)
         return retry
@@ -764,13 +792,24 @@ class SearchEngine:
     def _cand_pass(self, items, threshold, limit, batch_bucket, qp, out, cand_cap):
         """One candidate sweep at selection width ``cand_cap``.
 
-        The candidate rung runs when the packed table fits BITMAP_BUDGET,
-        every edge weight is 1, queries hold <= 127 gram windows and the
-        lane space dwarfs the h* budgets: K1 hit counts, the h* finish, and
-        (with the hits retained) the selection-only retry.  Every other
-        batch goes to the dense path unchanged - a routing decision with
-        the same results, independent of the device.  Returns (rows for
-        the dense path, n_cand, selectable lanes, retry context)."""
+        Two rungs, with the reference's gates in the reference's order:
+
+          * ``bitmap_kernel`` + h*: the packed table fits BITMAP_BUDGET,
+            every edge weight is 1, queries hold <= 127 gram windows and the
+            lane space dwarfs the h* budgets: K1 hit counts, the h* finish,
+            and (with the hits retained) the selection-only retry;
+          * ``sketch_packed``: the packed table does not fit BITMAP_BUDGET,
+            the index holds >= SKETCH_MIN_TERMS terms, the batch is not one
+            the reference sends to its tiny sorted-runs route, queries hold
+            <= 127 gram windows and the sketch fits SKETCH_BUDGET: K2 over
+            the packed bucket sketch and exact rescoring.
+
+        Batches the reference sends to routes the port does not have - the
+        tiny sorted runs, the unpacked sketch (more than 127 windows), the
+        weighted and non-h* bitmap finishes - go to the dense path
+        unchanged: a routing decision with the same results, independent of
+        the device.  Returns (rows for the dense path, n_cand, selectable
+        lanes, retry context)."""
         di = self.host.device
         ts, tl = di.n_short, di.n_long
         x_total = int(di.extra_key.shape[0])
@@ -787,14 +826,31 @@ class SearchEngine:
         hs_kb1 = self.HSTAR_KB1 * hs_scale
         hs_kb2 = self.HSTAR_KB2 * hs_scale
         hs_fill = self.HSTAR_FILL if cand_cap == self.CAND_TERMS_FAST else 0
-        bm = None
-        if self.HSTAR_SEL and self.host.uniform_weights and slots.shape[1] <= 127:
+        int8_counts = slots.shape[1] <= 127  # K1/K2 count contract
+        bm = sk = None
+        if self.HSTAR_SEL and self.host.uniform_weights and int8_counts:
             bm = self.host.bitmap_tables(self.BITMAP_BUDGET)
-        tlp = int(bm[1]) if bm is not None else tl
-        n_lanes = (ts if compute_short else 0) + tlp
+        # the batches the reference sends to its tiny sorted-runs route
+        tiny_batch = (
+            len(items) <= self.RUNS_TINY_BATCH and s_cap <= self.RUNS_TINY_LANES
+        )
+        if (
+            bm is None
+            and not self.host.bitmap_fits(self.BITMAP_BUDGET)
+            and self.host.n_terms >= self.SKETCH_MIN_TERMS
+            and not tiny_batch
+            and self.SKETCH_PACKED
+            and int8_counts
+        ):
+            sk = self.host.sketch_tables(self.SKETCH_BUDGET)
+        if bm is not None:
+            tlp = int(bm[1])
+            n_lanes = (ts if compute_short else 0) + tlp
+        else:
+            n_lanes = (ts if compute_short else 0) + tl
         n_cand = min(cand_cap, max(_next_pow2(n_lanes, 16), 16), n_lanes)
         use_kernel = bm is not None and n_lanes >= 4 * hs_kb2 * _BLK
-        if not use_kernel:
+        if not use_kernel and sk is None:
             self.last_routing = {
                 "variant": "dense",
                 "step": self._batch_cap(batch_bucket),
@@ -805,43 +861,85 @@ class SearchEngine:
             }
             return list(items), n_cand, n_lanes, None
 
-        per_q = (
-            tlp
-            + 16 * hs_kb2 * _BLK
-            + 24 * n_edge
-            + (48 * ts if compute_short else 0)
-            + (1 << 16)
-        )
+        if use_kernel:
+            # the retained hits and the h* gathers (~16 B per kept lane)
+            per_q = tlp + 16 * hs_kb2 * _BLK
+        else:
+            # the reference's sketch budget; the port holds the int8 hits
+            # and ~14 B per kept block lane, its block maxima built in
+            # fixed-size slabs (search.sketch)
+            per_q = 3 * int(sk[1].shape[0])
+        per_q += 24 * n_edge + (48 * ts if compute_short else 0) + (1 << 16)
         cap = max(int(self.BATCH_HBM_BUDGET // per_q), 8)
         step = 8
         while step * 2 <= min(cap, batch_bucket):
             step *= 2
-        bm_table = bm[0]
-        self.last_routing = {
-            "variant": "bitmap_kernel",
-            "step": step,
-            "n_cand": n_cand,
-            "block_sel": bool(n_lanes >= 4 * n_cand * _BLK),
-            "approx_sel": False,
-            "gp_rows": int(bm_table.shape[1]),
-            "gtile": False,
-            "fused_bmax": True,
-            "bmax_blk": _BLK,
-            "compact_rows": 0,
-            "virtual": False,
-            "hstar": True,
-            "pair_dots": False,
-            "kb1": hs_kb1,
-            "kb2": hs_kb2,
-        }
-        keep_sel = cand_cap == self.CAND_TERMS_FAST
+        keep_sel = use_kernel and cand_cap == self.CAND_TERMS_FAST
+        pt, xt = self.host.prim_tables()
+        if use_kernel:
+            bm_table = bm[0]
+            self.last_routing = {
+                "variant": "bitmap_kernel",
+                "step": step,
+                "n_cand": n_cand,
+                "block_sel": bool(n_lanes >= 4 * n_cand * _BLK),
+                "approx_sel": False,
+                "gp_rows": int(bm_table.shape[1]),
+                "gtile": False,
+                "fused_bmax": True,
+                "bmax_blk": _BLK,
+                "compact_rows": 0,
+                "virtual": False,
+                "hstar": True,
+                "pair_dots": False,
+                "kb1": hs_kb1,
+                "kb2": hs_kb2,
+            }
+
+            def front(sl, lim_d):
+                return candidates_bitmap_mxu(
+                    di, bm_table, pt, xt, qtok_d[sl], qlens_d[sl],
+                    slots_d[sl], nqg_d[sl], ushort_d[sl], promo_d[sl],
+                    promo_t_d[sl], promo_w_d[sl], lim_d,
+                    np.float32(threshold), compute_short=compute_short,
+                    n_cand=n_cand, n_edge=n_edge, top_k=top_k, kb1=hs_kb1,
+                    kb2=hs_kb2, hs_fill=hs_fill, keep_hits=keep_sel,
+                )
+        else:
+            inc, tg, wmax_pad, d_log2 = sk
+            # superblock count from the TERM width (tg rows), not the
+            # packed table's byte width
+            sb = max(int(tg.shape[0]) // (_BLK * 128), 1)
+            ksb = min(self.SK_KSB * hs_scale, sb)
+            kb = min(self.SK_KB * hs_scale, ksb * 128)
+            n_short_cand = min(
+                max(_next_pow2(min(ts, 512), 16), 16), max(ts, 1)
+            )
+            self.last_routing = {
+                "variant": "sketch_packed",
+                "step": step,
+                "n_cand": n_cand,
+                "block_sel": bool(n_lanes >= 4 * n_cand * _BLK),
+                "approx_sel": False,
+            }
+
+            def front(sl, lim_d):
+                return candidates_sketch(
+                    di, inc, tg, wmax_pad, pt, xt, qtok_d[sl], qlens_d[sl],
+                    slots_d[sl], nqg_d[sl], ushort_d[sl], promo_d[sl],
+                    promo_t_d[sl], promo_w_d[sl], lim_d,
+                    np.float32(threshold), d_log2=d_log2,
+                    compute_short=compute_short,
+                    n_cand=min(n_cand, kb * 128),
+                    n_short_cand=n_short_cand, ksb=ksb, kb=kb,
+                    n_edge=n_edge, top_k=top_k,
+                )
 
         promo_all = np.full((b_all, self.PROMO_KEYS), -1, dtype=np.int32)
         for r, item in enumerate(items):
             pids = item[3]
             promo_all[r, : pids.size] = pids
         promo_t, promo_w = self._promo_tables(promo_all)
-        pt, xt = self.host.prim_tables()
 
         # every chunk is queued before any result is fetched; the batch's
         # arrays go to the device once and chunks slice them there
@@ -857,34 +955,10 @@ class SearchEngine:
         for lo in range(0, len(items), step):
             hi = min(lo + step, len(items))
             b = _next_pow2(hi - lo, min(step, 16))
-            sl = slice(lo, lo + b)
             lim_d = torch.full(
                 (b,), min(limit, 2**30), dtype=torch.int32, device=self.device
             )
-            res = candidates_bitmap_mxu(
-                di,
-                bm_table,
-                pt,
-                xt,
-                qtok_d[sl],
-                qlens_d[sl],
-                slots_d[sl],
-                nqg_d[sl],
-                ushort_d[sl],
-                promo_d[sl],
-                promo_t_d[sl],
-                promo_w_d[sl],
-                lim_d,
-                np.float32(threshold),
-                compute_short=compute_short,
-                n_cand=n_cand,
-                n_edge=n_edge,
-                top_k=top_k,
-                kb1=hs_kb1,
-                kb2=hs_kb2,
-                hs_fill=hs_fill,
-                keep_hits=keep_sel,
-            )
+            res = front(slice(lo, lo + b), lim_d)
             block = _pack(res[0], res[1], res[2], res[4])
             pending.append((lo, hi, block, res[5:] if keep_sel else None))
 

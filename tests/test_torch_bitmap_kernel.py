@@ -143,9 +143,9 @@ def test_wrapper_on_cpu_runs_plain_version(real_table):
     gp = int(bm.shape[1])
     q = torch.from_numpy(_qcnt(np.random.default_rng(3), 4, gp, 9))
     planes = torch.from_numpy(np.array(bm))
-    before = (pbm.REF_CALLS, pbm.KERNEL_LAUNCHES)
+    before = (pbm.K1_REF_CALLS, pbm.K1_LAUNCHES)
     hits, bmax = pbm.bitmap_hits_bmax(q, planes)
-    assert (pbm.REF_CALLS, pbm.KERNEL_LAUNCHES) == (before[0] + 1, before[1])
+    assert (pbm.K1_REF_CALLS, pbm.K1_LAUNCHES) == (before[0] + 1, before[1])
     rh, rb = pbm.bitmap_hits_bmax_ref(q, planes)
     assert torch.equal(hits, rh) and torch.equal(bmax, rb)
     assert hits.dtype == bmax.dtype == torch.int8

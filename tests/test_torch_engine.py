@@ -103,9 +103,9 @@ def test_bitmap_kernel_route_matches_jax_and_oracle(pair, monkeypatch, kb):
 
     monkeypatch.setattr(pe, "_run_dense_chunks", spy_dense)
     queries = _queries(words, 24, seed=5)
-    calls = pbm.REF_CALLS
+    calls = pbm.K1_REF_CALLS
     got = pe.search_batch(queries, 0.25, 10, mode="candidates")
-    assert pbm.REF_CALLS > calls
+    assert pbm.K1_REF_CALLS > calls
     assert pe.last_routing["variant"] == "bitmap_kernel"
     assert pe.last_routing["hstar"] is True
     assert pe.last_routing["kb2"] == kb[1]

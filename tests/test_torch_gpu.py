@@ -1,6 +1,7 @@
-"""Tests of the PyTorch port that need a CUDA card: the hand-written K1
-kernel against its plain version, and the index build and the search on
-the card against the same on the CPU.  They import no jax, so on a machine
+"""Tests of the PyTorch port that need a CUDA card: the hand-written K1 and
+K2 kernels against their plain versions, and the index build and the
+search (bitmap-kernel and sketch routes) on the card against the same on
+the CPU.  They import no jax, so on a machine
 with a card and no jax they run with
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -25,7 +26,7 @@ pytestmark = pytest.mark.gpu
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the K1 kernel has no CPU form)")
+        pytest.skip("needs a CUDA device (the K1/K2 kernels have no CPU form)")
     return torch.device("cuda")
 
 
@@ -55,11 +56,11 @@ def test_cuda_kernel_matches_plain_version(cuda, gp):
     ).to(cuda)
     for total in (31, 127):
         q = _qcnt(rng, 64, gp, 16, total).to(cuda)
-        launches = pbm.KERNEL_LAUNCHES
+        launches = pbm.K1_LAUNCHES
         hits, bmax = pbm.bitmap_hits_bmax(q, planes)
         rh, rb = pbm.bitmap_hits_bmax_ref(q, planes)
         torch.cuda.synchronize()
-        assert pbm.KERNEL_LAUNCHES == launches + 1
+        assert pbm.K1_LAUNCHES == launches + 1
         assert torch.equal(hits, rh) and torch.equal(bmax, rb)
 
 
@@ -89,9 +90,9 @@ def test_search_on_cuda_matches_cpu(cuda, kb):
         w[:-1] + "x" if i % 2 else w
         for i, w in enumerate(rng.choice(words) for _ in range(40))
     ] + ["ka", "*", "", "!!!"]
-    launches = pbm.KERNEL_LAUNCHES
+    launches = pbm.K1_LAUNCHES
     got = engines[1].search_batch(queries, 0.25, 10, mode="candidates")
-    assert pbm.KERNEL_LAUNCHES > launches
+    assert pbm.K1_LAUNCHES > launches
     assert engines[1].last_routing["variant"] == "bitmap_kernel"
     want = engines[0].search_batch(queries, 0.25, 10, mode="candidates")
     dense = engines[1].search_batch(queries, 0.25, 10, mode="dense")
@@ -100,3 +101,45 @@ def test_search_on_cuda_matches_cpu(cuda, kb):
         assert sorted(zip(g[1], g[0])) == sorted(zip(d[1], d[0]))
     for q in queries[:4]:
         assert engines[1].search(q, 0.3, 20) == engines[0].search(q, 0.3, 20)
+
+
+@pytest.mark.parametrize("gp,ntiles", [(128, 5), (8192, 3)])
+def test_cuda_k2_matches_plain_version(cuda, gp, ntiles):
+    rng = np.random.default_rng(gp + 1)
+    planes = torch.from_numpy(
+        rng.integers(0, 256, size=(ntiles, gp, pbm.BLKB), dtype=np.uint8).view(np.int8)
+    ).to(cuda)
+    for total in (31, 127):
+        q = _qcnt(rng, 96, gp, 24, total).to(cuda)
+        launches = (pbm.K2_LAUNCHES, pbm.K1_LAUNCHES)
+        hits = pbm.bitmap_hits(q, planes)
+        want = pbm.bitmap_hits_ref(q, planes)
+        torch.cuda.synchronize()
+        assert (pbm.K2_LAUNCHES, pbm.K1_LAUNCHES) == (launches[0] + 1, launches[1])
+        assert torch.equal(hits, want)
+        assert torch.equal(hits, pbm.bitmap_hits_bmax(q, planes)[0])
+
+
+def test_sketch_route_on_cuda_matches_cpu(cuda):
+    rng = random.Random(9)
+    words, weights = [], []
+    for w in _corpus(2400, seed=17):
+        words += [w, w[::-1] + rng.choice(["ka", "lo", "nor"])]
+        weights += [1.0, 0.4]
+    engines = []
+    for dev in ("cpu", cuda):
+        host = build_index(words, 2, weights, IndexConfig(), device=dev)
+        eng = SearchEngine(host)
+        eng.BITMAP_BUDGET = eng.SKETCH_MIN_TERMS = eng.CAND_MIN_TERMS = 0
+        engines.append(eng)
+    queries = [w[:-1] + "x" for w in rng.sample(words, 40)]
+    launches = pbm.K2_LAUNCHES
+    got = engines[1].search_batch(queries, 0.3, 10, mode="candidates")
+    assert pbm.K2_LAUNCHES > launches
+    assert engines[1].last_routing["variant"] == "sketch_packed"
+    assert got == engines[0].search_batch(queries, 0.3, 10, mode="candidates")
+    dense = engines[1].search_batch(queries, 0.3, 10, mode="dense")
+    for g, d in zip(got, dense):
+        assert sorted(zip(g[1], g[0])) == sorted(zip(d[1], d[0]))
+    for a, b in zip(engines[0].host.sketch_tables(), engines[1].host.sketch_tables()):
+        assert a == b if isinstance(a, int) else torch.equal(a, b.cpu())
