@@ -1,24 +1,34 @@
 #!/usr/bin/env python3
 """GPU smoke test of the PyTorch port (stringsearchlib_tpu_torch).
 
-Drives the port's two candidate paths once each on one CUDA card, through
-``SearchEngine.search_batch``:
+Drives the port's candidate paths on one CUDA card, through
+``SearchEngine.search_batch`` and ``SearchEngine.search``:
 
   * the headline batch search of ``bench.py`` (product-name corpus, uniform
     weights, 512-query batches at threshold 0.3, top-100), which routes to
     the hand-written K1 kernel and the integer h* finish;
+  * the gathered-row small-batch route on the same 10M-key index (forced
+    with ``BITMAP_GATHER_TMAJ``, as the reference's own tests force it):
+    the hand-written row-gather kernel (K3/K4), then K1 on the compact
+    table and the h* finish;
   * the weighted 2-D index of ``bench.py`` (``index2d_1m_rows``: 1M rows of
     product name + gram-rich description, weights [1.0, 0.4]), whose packed
     bitmap is over budget, so it routes to the packed bucket sketch through
-    the hand-written K2 kernel.
+    the hand-written K2 kernel;
+  * the same 2-D layout at 500k rows, whose packed bitmap fits its budget:
+    the weighted bitmap route, K2, ``block_hmax`` and the blockmax finish;
+  * ``bench.py``'s ``wide_100k_g2`` (100k CJK/accented keys, gram size 2):
+    K2 and the dense-hits finish.
 
 Phases, each printing one line with its seconds; any failure raises, so the
-script exits non-zero and prints no final ``ok`` line:
+script exits non-zero and prints no final ``ok`` line.  They run in the
+order 1-6, 11-12, 7-10, 13-14:
 
   1. device: a CUDA card is required; prints nvidia-smi's name and power
      limit;
-  2. build: compiles K1 from csrc/ with nvcc and the native index builder
-     with g++, and says whether the native builder loaded;
+  2. build: compiles the CUDA sources in csrc/ with nvcc (one process per
+     source, started together) and the native index builder with g++, and
+     says whether the native builder loaded;
   3. K1 against its plain PyTorch version on random tables (every bit set
      somewhere, bit 7 included; multiplicities summing to 31 and to 127):
      bit-identical hits and block maxima;
@@ -39,12 +49,30 @@ script exits non-zero and prints no final ``ok`` line:
      B = 256 and at the engine's step, bit-identical to the plain version;
      both timed with CUDA events;
   10. 2-D exactness: 32 of those queries again through the dense path, the
-     same tie groups.
+     same tie groups;
+  11. the row gather against its plain version on random tables: row-major
+     with NB % 1024 (K3's contract) and NB % 128 only (K4's), tile-major at
+     the 10M index's width; Gc 32 / 128 / 512 with duplicate and padding
+     rows; torch.equal, both timed with CUDA events;
+  12. gathered route on the 10M index: 64 single queries and 8 batches of 8;
+     every pass the tiny-runs gate declines must route bitmap_gather with
+     h* and >= 32 gathered rows, with gather and K1 launches and no plain
+     calls; results equal, as tie groups, the default bitmap_kernel route's
+     and the dense path's; single-query p50/p90 on both routes; the gather
+     kernel timed on real rows;
+  13. weighted bitmap route: the 2-D layout at ``--rows2d-bitmap`` rows
+     (500k), its packed table within BITMAP_BUDGET; one warm-up and three
+     timed batches of 1,024 queries; route bitmap_kernel, no h*, block_sel,
+     no fused block max, K2 launches, no plain calls; 32 queries against the
+     dense path; one batch timed fused K1 against K2 + block_hmax, and
+     BITMAP_KB_LANES 0 against 65536, with equal results;
+  14. wide_100k_g2: 256 queries; route bitmap_kernel, no h*, no block_sel,
+     K2 launches; 32 queries against the dense path.
 
 The line before the last is a JSON object describing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
 
-Usage:  python3 chip_smoke.py [--keys N] [--rows2d N]
+Usage:  python3 chip_smoke.py [--keys N] [--rows2d N] [--rows2d-bitmap N]
 """
 
 from __future__ import annotations
@@ -66,6 +94,9 @@ N_QUERIES = 512  # one batch of the headline (bench.py)
 N_QUERIES_2D = 1024  # the 2-D config's query count (bench.py)
 REPS = 3
 N_SINGLE = 64
+N_SMALL_BATCHES = 8  # batches of GATHER_BATCH queries on the gathered route
+N_WIDE = 100_000  # bench.py wide_100k_g2
+N_QUERIES_WIDE = 256
 
 
 def _phase(name: str, t0: float, **info) -> None:
@@ -119,7 +150,10 @@ def _random_case(gen, b: int, gp: int, ntiles: int, total: int, device):
 
 def _kernel_of(name: str):
     """'k1' / 'k2' for the two instantiations of csrc/bitmap_hits.cu's
-    kernel (demangled or mangled name), else None."""
+    kernel (demangled or mangled name), 'g' for csrc/gather_rows.cu's,
+    else None."""
+    if "gather_rows_kernel" in name:
+        return "g"
     if "bitmap_hits_kernel" not in name:
         return None
     return "k1" if ("<true>" in name or "ILb1E" in name) else "k2"
@@ -167,16 +201,26 @@ def _trace(run) -> dict:
     ops.sort(key=lambda x: -x[1])
     k1 = sum(v for k, v in by_name.items() if _kernel_of(k) == "k1")
     k2 = sum(v for k, v in by_name.items() if _kernel_of(k) == "k2")
+    g = sum(v for k, v in by_name.items() if _kernel_of(k) == "g")
     return {
         "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy / 1e3,
         "device_idle_share": max(0.0, 1.0 - busy / wall_us),
         "k1_ms": k1 / 1e3,
         "k2_ms": k2 / 1e3,
+        "gather_ms": g / 1e3,
         "top_kernels_ms": {k: v / 1e3 for k, v in top},
         "top_ops_device_ms": {f"{k} x{n}": t / 1e3 for k, t, n in ops[:10]},
         "n_kernel_launches": len(spans),
     }
+
+
+def _device_ms(fn, reps: int = 20):
+    """Device-busy milliseconds per call of ``fn`` over ``reps`` calls, from
+    a torch.profiler trace (kernel intervals merged): the device's share of
+    a call, without the host time a wrapper spends around its launch."""
+    busy = _trace(lambda: [fn() for _ in range(reps)]).get("device_busy_ms")
+    return None if busy is None else busy / reps
 
 
 def _max_abs_err(a, b, rows: int = 32) -> int:
@@ -233,11 +277,384 @@ def np_tile(slots, b: int):
     return np.ascontiguousarray(np.tile(slots, (reps, 1))[:b])
 
 
+def _reset_counts() -> None:
+    """Every kernel's launch and plain-call count to 0."""
+    from stringsearchlib_tpu_torch.ops import bitmap_matmul as bmm
+
+    bmm.K1_LAUNCHES = bmm.K1_REF_CALLS = bmm.K2_LAUNCHES = bmm.K2_REF_CALLS = 0
+    bmm.G_LAUNCHES = bmm.G_REF_CALLS = 0
+
+
+def _counts() -> dict:
+    from stringsearchlib_tpu_torch.ops import bitmap_matmul as bmm
+
+    return {
+        "k1": bmm.K1_LAUNCHES, "k1_plain": bmm.K1_REF_CALLS,
+        "k2": bmm.K2_LAUNCHES, "k2_plain": bmm.K2_REF_CALLS,
+        "gather": bmm.G_LAUNCHES, "gather_plain": bmm.G_REF_CALLS,
+    }
+
+
+def _timed_batches(engine, queries, threshold, limit, reps=REPS):
+    """One warm-up and ``reps`` timed batches (host clock, each ended by a
+    synchronize): (results, warm-up s, rep s)."""
+    import torch
+
+    t1 = time.perf_counter()
+    results = engine.search_batch(queries, threshold, limit, batch_bucket=512)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t1
+    rep_s = []
+    for _ in range(reps):
+        t1 = time.perf_counter()
+        results = engine.search_batch(queries, threshold, limit, batch_bucket=512)
+        torch.cuda.synchronize()
+        rep_s.append(time.perf_counter() - t1)
+    return results, warm_s, rep_s
+
+
+def _single_ms(engine, queries, threshold, limit):
+    """Each query once through ``SearchEngine.search`` after one warm-up:
+    (results, sorted milliseconds)."""
+    engine.search(queries[0], threshold, limit)
+    out, ms = [], []
+    for q in queries:
+        t1 = time.perf_counter()
+        out.append(engine.search(q, threshold, limit))
+        ms.append((time.perf_counter() - t1) * 1e3)
+    return out, sorted(ms)
+
+
+def _with_passes(engine, fn):
+    """``fn()`` with every candidate pass of ``engine`` recorded: (fn's
+    result, [(items, qp, routing) per pass]).  ``last_routing`` alone shows
+    only the last pass, and a retry pass routes at wider budgets."""
+    passes = []
+    orig = engine._cand_pass
+
+    def spy(items, *a):
+        res = orig(items, *a)
+        passes.append((list(items), a[3], dict(engine.last_routing)))
+        return res
+
+    engine._cand_pass = spy
+    try:
+        return fn(), passes
+    finally:
+        del engine._cand_pass
+
+
+def _pct(sorted_ms, q: float) -> float:
+    return sorted_ms[min(int(len(sorted_ms) * q), len(sorted_ms) - 1)]
+
+
+def _same_groups(a, b, what: str) -> None:
+    for i, (x, y) in enumerate(zip(a, b)):
+        if _tie_groups(*x) != _tie_groups(*y):
+            raise AssertionError(f"{what}: results differ for query {i}")
+
+
+def _gather_random(gen, dev, ntiles: int):
+    """The row gather against its plain version: row-major tables with
+    NB % 1024 (K3's contract) and NB % 128 only (K4's), a tile-major table
+    of the 10M index's width; Gc 32 / 128 / 512, half of them drawn with
+    repeats and the rest padding rows (row 0).  Returns (max_abs_err,
+    cases, timing)."""
+    import torch
+    from stringsearchlib_tpu_torch.ops import bitmap_matmul as bmm
+
+    cases = (
+        ("row_major_nb1024", (2816, 8 * 1024)),
+        ("row_major_nb128", (2816, 11 * 128)),
+        ("tile_major", (ntiles, 256, bmm.BLKB)),
+    )
+    err, n, timing = 0, 0, {}
+    for name, shape in cases:
+        table = torch.randint(-128, 128, shape, generator=gen, dtype=torch.int8).to(dev)
+        for gc in (32, 128, 512):
+            rows = torch.zeros(gc, dtype=torch.int32)
+            rows[: gc // 2] = torch.randint(0, shape[-2], (gc // 2,), generator=gen)
+            rows = rows.to(dev)
+            got = bmm.gather_rows(table, rows)
+            want = bmm.gather_rows_ref(table, rows)
+            same = torch.equal(got, want)
+            if name == "row_major_nb1024":
+                same = same and torch.equal(bmm.gather_rows_dma(table, rows), want)
+            if name.startswith("row_major"):
+                same = same and torch.equal(bmm.gather_rows_pallas(table, rows), want)
+            torch.cuda.synchronize()
+            e = _max_abs_err(got, want)
+            err, n = max(err, e), n + 1
+            if e or not same:
+                raise AssertionError(f"gather differs from its plain version: {name} "
+                                     f"gc={gc} max_abs_err={e}")
+            k_ms = _cuda_ms(lambda: bmm.gather_rows(table, rows), 20)
+            timing[f"{name}_gc{gc}"] = {
+                "shape": list(shape), "ms": k_ms,
+                "plain_ms": _cuda_ms(lambda: bmm.gather_rows_ref(table, rows), 5),
+                "gb_per_s": 2 * got.numel() / k_ms / 1e6,
+            }
+            del got, want
+        del table
+        torch.cuda.empty_cache()
+    return err, n, timing
+
+
+def _gathered_route(engine, table, queries, threshold, limit, dev):
+    """The gathered-row route (BITMAP_GATHER_TMAJ) on the 10M index against
+    the default full-table route and the dense path."""
+    import numpy as np
+    import torch
+    from stringsearchlib_tpu_torch.ops import bitmap_matmul as bmm
+
+    singles = queries[:N_SINGLE]
+    batches = [queries[N_SINGLE + 8 * i : N_SINGLE + 8 * (i + 1)]
+               for i in range(N_SMALL_BATCHES)]
+    engine.BITMAP_GATHER_TMAJ = False
+    want_single, default_ms = _single_ms(engine, singles, threshold, limit)
+    want_batches = [engine.search_batch(b, threshold, limit) for b in batches]
+
+    engine.BITMAP_GATHER_TMAJ = True
+    engine.search(singles[0], threshold, limit)  # warm-up
+    _reset_counts()
+    (got_single, got_batches), passes = _with_passes(engine, lambda: (
+        [engine.search(q, threshold, limit) for q in singles],
+        [engine.search_batch(b, threshold, limit) for b in batches],
+    ))
+    torch.cuda.synchronize()
+    counts = _counts()
+    by_variant: dict = {}
+    for items, qp, rt in passes:
+        s_cap = engine._prep_rows(items, qp)[6]
+        tiny = (engine.host.n_terms >= engine.SKETCH_MIN_TERMS
+                and len(items) <= engine.RUNS_TINY_BATCH
+                and s_cap <= engine.RUNS_TINY_LANES)
+        key = ("tiny_" if tiny else "") + rt["variant"]
+        by_variant[key] = by_variant.get(key, 0) + 1
+        want_v = "bitmap_kernel" if tiny else "bitmap_gather"
+        if rt["variant"] != want_v or not rt.get("hstar"):
+            raise AssertionError(f"pass of {len(items)} queries (tiny={tiny}) "
+                                 f"routed {rt}")
+        if not tiny and rt["gather_rows"] < 32:
+            raise AssertionError(f"gathered pass with {rt['gather_rows']} rows")
+    if not by_variant.get("bitmap_gather"):
+        raise AssertionError(f"no pass took the gathered route: {by_variant}")
+    if counts["gather"] <= 0 or counts["k1"] <= 0 or counts["gather_plain"] or counts["k1_plain"]:
+        raise AssertionError(f"gathered route counts {counts}")
+    _, gather_ms = _single_ms(engine, singles, threshold, limit)
+    engine.BITMAP_GATHER_TMAJ = False
+
+    _same_groups(got_single, want_single, "gathered vs bitmap_kernel (single)")
+    got_flat = [r for b in got_batches for r in b]
+    _same_groups(got_flat, [r for b in want_batches for r in b],
+                 "gathered vs bitmap_kernel (batches of 8)")
+    dense = engine.search_batch(singles + [q for b in batches for q in b],
+                                threshold, limit, batch_bucket=512, mode="dense")
+    _same_groups(got_single + got_flat, dense, "gathered vs dense")
+    _check_results(got_single + got_flat, singles + [q for b in batches for q in b],
+                   threshold, limit)
+
+    # the gather kernel on a real batch's rows
+    items = []
+    for pos, q in enumerate(batches[0]):
+        qnorm, qlen = engine._normalize_query(q)
+        items.append((pos, qnorm, qlen, None))
+    slots = engine._prep_rows(items, 32)[3]
+    rows, _, gc = engine._gather_rows_plan(slots)
+    n_union = int(np.unique(slots[slots >= 0]).size)
+    rows_d = torch.from_numpy(rows).to(dev)
+    kg = bmm.gather_rows(table, rows_d)
+    rg = bmm.gather_rows_ref(table, rows_d)
+    torch.cuda.synchronize()
+    err = _max_abs_err(kg, rg)
+    if err or not torch.equal(kg, rg):
+        raise AssertionError(f"gather differs on the real table's rows: {err}")
+    g_ms = _cuda_ms(lambda: bmm.gather_rows(table, rows_d), 20)
+    return {
+        "passes_by_variant": by_variant,
+        "gather_launches": counts["gather"],
+        "k1_launches": counts["k1"],
+        "counts": counts,
+        "single_query_ms": {
+            "n": len(singles),
+            "gathered": {"p50": _pct(gather_ms, 0.5), "p90": _pct(gather_ms, 0.9)},
+            "bitmap_kernel": {"p50": _pct(default_ms, 0.5), "p90": _pct(default_ms, 0.9)},
+        },
+        "gather_real_rows": {
+            "gc": int(gc), "union_rows": n_union,
+            "table_shape": list(table.shape), "ms": g_ms,
+            "plain_ms": _cuda_ms(lambda: bmm.gather_rows_ref(table, rows_d), 5),
+            "gb_per_s": 2 * kg.numel() / g_ms / 1e6,
+            "device_ms": _device_ms(lambda: bmm.gather_rows(table, rows_d)),
+            "plain_device_ms": _device_ms(lambda: bmm.gather_rows_ref(table, rows_d)),
+        },
+        "max_abs_err": err,
+    }
+
+
+def _weighted_bitmap_route(n_rows: int, threshold, limit, dev):
+    """bench.py's 2-D layout at ``n_rows`` rows, whose packed bitmap fits
+    BITMAP_BUDGET: the weighted bitmap route (K2, block_hmax, blockmax
+    finish), the dense check, and one batch timed each way for the fused
+    block max and BITMAP_KB_LANES."""
+    import numpy as np
+    import torch
+
+    import bench
+    from stringsearchlib_tpu_torch.config import IndexConfig
+    from stringsearchlib_tpu_torch.index import build as buildmod
+    from stringsearchlib_tpu_torch.search.engine import SearchEngine
+
+    t0 = time.perf_counter()
+    rows = bench._product_names(n_rows, seed=5)
+    descs = bench._rich_names(n_rows, seed=6)
+    words = [x for kv in zip(rows, descs) for x in kv]
+    del rows, descs
+    weights = np.tile(np.array([1.0, 0.4]), n_rows)
+    corpus_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    host = buildmod.build_index(words, 2, weights, IndexConfig(), device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    engine = SearchEngine(host)
+    if not host.bitmap_fits(engine.BITMAP_BUDGET):
+        raise AssertionError(f"the {n_rows}-row packed bitmap is over BITMAP_BUDGET")
+    t1 = time.perf_counter()
+    bm = host.bitmap_tables(engine.BITMAP_BUDGET)
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t1
+    info = {
+        "n_rows": n_rows, "n_terms": host.n_terms, "n_grams": host.n_grams,
+        "uniform_weights": host.uniform_weights, "corpus_s": corpus_s,
+        "build_s": build_s, "bitmap_table_s": table_s,
+        "bitmap_bytes": int(bm[0].numel()), "table_shape": list(bm[0].shape),
+        "budget_bytes": int(engine.BITMAP_BUDGET),
+        "peak_mem_build_bytes": int(torch.cuda.max_memory_allocated()),
+    }
+    rng = random.Random(7)
+    queries = [bench._mutate(rng, rng.choice(words)) for _ in range(N_QUERIES_2D)]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    (results, warm_s, rep_s), passes = _with_passes(
+        engine, lambda: _timed_batches(engine, queries, threshold, limit)
+    )
+    counts = _counts()
+    routing = passes[0][2]
+    if (routing.get("variant") != "bitmap_kernel" or routing.get("hstar")
+            or routing.get("fused_bmax") or not routing.get("block_sel")):
+        raise AssertionError(f"the weighted index did not take bitmap_kernel + blockmax: {routing}")
+    if counts["k2"] <= 0 or counts["k1"] or counts["k2_plain"] or counts["k1_plain"]:
+        raise AssertionError(f"weighted route counts {counts}")
+    _check_results(results, queries, threshold * 0.4 * (1 - 1e-6), limit)
+    med = sorted(rep_s)[len(rep_s) // 2]
+    info.update(
+        qps_median=N_QUERIES_2D / med, rep_s=rep_s, warmup_s=warm_s,
+        routing_first_pass=routing, routing_last=dict(engine.last_routing),
+        k2_launches=counts["k2"], counts=counts,
+        peak_mem_search_bytes=int(torch.cuda.max_memory_allocated()),
+        mean_results=sum(len(k) for k, _ in results) / len(results),
+        traced_batch=_trace(lambda: engine.search_batch(
+            queries, threshold, limit, batch_bucket=512)),
+    )
+    _check_exact(engine, queries[:32], results[:32], threshold, limit)
+
+    # one 512-query batch each way: K2 + block_hmax (the default) against
+    # the fused K1 block max, and the kept-lane budget 0 against 65536
+    half = queries[:512]
+    base = None
+    cells = {}
+    for name, setting in (
+        ("k2_block_hmax", {}), ("k1_fused", {"BITMAP_FUSED_BMAX": True}),
+        ("kb_lanes_65536", {"BITMAP_KB_LANES": 65536}),
+        ("k2_block_hmax_again", {}),
+    ):
+        for k, v in setting.items():
+            setattr(engine, k, v)
+        engine.search_batch(half, threshold, limit, batch_bucket=512)
+        torch.cuda.synchronize()
+        _reset_counts()
+        ms = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            res = engine.search_batch(half, threshold, limit, batch_bucket=512)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+        tr = _trace(lambda: engine.search_batch(half, threshold, limit, batch_bucket=512))
+        cells[name] = {
+            "host_ms": ms, "counts": _counts(),
+            "fused_bmax": engine.last_routing.get("fused_bmax"),
+            "retry_fast": engine.last_routing.get("retry_fast"),
+            "device_busy_ms": tr.get("device_busy_ms"), "wall_ms": tr.get("wall_ms"),
+            "k1_ms": tr.get("k1_ms"), "k2_ms": tr.get("k2_ms"),
+        }
+        for k in setting:
+            delattr(engine, k)
+        if base is None:
+            base = res
+        else:
+            _same_groups(res, base, f"weighted batch {name} vs k2_block_hmax")
+    if not cells["k1_fused"]["counts"]["k1"] or cells["k1_fused"]["counts"]["k2"]:
+        raise AssertionError(f"the fused setting did not run K1: {cells['k1_fused']}")
+    info["one_batch_each_way"] = cells
+    del engine, host, bm, results
+    return info
+
+
+def _wide_g2_route(threshold, limit, dev):
+    """bench.py's wide_100k_g2: 100k wide keys at gram size 2, 256 queries;
+    the bitmap route without h* or block selection (K2, dense-hits
+    finish)."""
+    import torch
+
+    import bench
+    from stringsearchlib_tpu_torch.config import IndexConfig
+    from stringsearchlib_tpu_torch.index import build as buildmod
+    from stringsearchlib_tpu_torch.search.engine import SearchEngine
+
+    words = bench._wide_names(N_WIDE)
+    t1 = time.perf_counter()
+    host = buildmod.build_index(
+        words, 1, None, IndexConfig(wide=True, gram_size=2), device=dev
+    )
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    engine = SearchEngine(host)
+    rng = random.Random(7)
+    queries = [bench._mutate(rng, rng.choice(words)) for _ in range(N_QUERIES_WIDE)]
+    _reset_counts()
+    (results, warm_s, rep_s), passes = _with_passes(
+        engine, lambda: _timed_batches(engine, queries, threshold, limit)
+    )
+    counts = _counts()
+    routing = passes[0][2]
+    if (routing.get("variant") != "bitmap_kernel" or routing.get("hstar")
+            or routing.get("block_sel")):
+        raise AssertionError(f"wide_100k_g2 did not take bitmap_kernel + dense hits: {routing}")
+    if counts["k2"] <= 0 or counts["k2_plain"] or counts["k1_plain"]:
+        raise AssertionError(f"wide_100k_g2 counts {counts}")
+    _check_results(results, queries, threshold, limit)
+    _check_exact(engine, queries[:32], results[:32], threshold, limit)
+    med = sorted(rep_s)[len(rep_s) // 2]
+    bm = host.bitmap_tables(engine.BITMAP_BUDGET)
+    return {
+        "n_keys": len(words), "n_terms": host.n_terms, "n_grams": host.n_grams,
+        "build_s": build_s, "table_shape": list(bm[0].shape),
+        "qps_median": N_QUERIES_WIDE / med, "rep_s": rep_s, "warmup_s": warm_s,
+        "routing_first_pass": routing, "routing_last": dict(engine.last_routing),
+        "k2_launches": counts["k2"], "counts": counts,
+        "mean_results": sum(len(k) for k, _ in results) / len(results),
+    }
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--keys", type=int, default=10_000_000)
     ap.add_argument("--rows2d", type=int, default=1_000_000,
                     help="rows of the weighted 2-D index (phase 8)")
+    ap.add_argument("--rows2d-bitmap", type=int, default=500_000,
+                    help="rows of the weighted 2-D index whose packed bitmap "
+                         "fits its budget (phase 13)")
     args = ap.parse_args()
 
     # -- 1. device ----------------------------------------------------------
@@ -275,10 +692,12 @@ def main() -> None:
     from stringsearchlib_tpu_torch.search.engine import SearchEngine
     from stringsearchlib_tpu_torch.search.sketch import bucket_of
 
-    so = bmm.build_kernel()
-    bmm._lib()
+    sos = bmm.build_kernels()
+    for name in sos:
+        bmm._lib(name)
     native = nativelib.get_native() is not None
-    _phase("build", t0, kernel_so=os.path.relpath(so, _ROOT), native_builder=native)
+    _phase("build", t0, kernel_sos=",".join(os.path.relpath(p, _ROOT) for p in sos.values()),
+           native_builder=native)
 
     # -- 3. K1 vs plain, random tables -------------------------------------
     t0 = time.perf_counter()
@@ -419,6 +838,20 @@ def main() -> None:
     t0 = time.perf_counter()
     _check_exact(engine, queries[:32], results[:32], threshold, limit)
     _phase("exactness", t0, queries=32)
+
+    # -- 11. the row gather vs plain, random tables --------------------------
+    t0 = time.perf_counter()
+    g_err, g_cases, g_timing = _gather_random(gen, dev, int(table.shape[0]))
+    print(json.dumps({"gather_random_timing": g_timing, "card": smi}), flush=True)
+    _phase("gather_random", t0, cases=g_cases, max_abs_err=g_err)
+
+    # -- 12. the gathered-row route on the 10M index ----------------------------
+    t0 = time.perf_counter()
+    gathered = _gathered_route(engine, table, queries, threshold, limit, dev)
+    g_err = max(g_err, gathered["max_abs_err"])
+    print(json.dumps({"gathered_route": gathered, "card": smi}), flush=True)
+    _phase("gathered_route", t0, launches=gathered["gather_launches"],
+           passes=gathered["passes_by_variant"])
     del engine, host, bm, table, q, results
     torch.cuda.empty_cache()
 
@@ -555,8 +988,26 @@ def main() -> None:
     t0 = time.perf_counter()
     _check_exact(engine2, queries2[:32], results2[:32], threshold, limit)
     _phase("exactness_2d", t0, queries=32)
+    del engine2, host2, sk, inc, tg, q, results2
+    torch.cuda.empty_cache()
+
+    # -- 13. the weighted bitmap route (2-D layout, table within budget) -----
+    t0 = time.perf_counter()
+    weighted = _weighted_bitmap_route(args.rows2d_bitmap, threshold, limit, dev)
+    print(json.dumps({"weighted_bitmap": weighted, "card": smi}), flush=True)
+    _phase("weighted_bitmap", t0, qps=round(weighted["qps_median"], 2),
+           k2_launches=weighted["k2_launches"])
+    torch.cuda.empty_cache()
+
+    # -- 14. wide_100k_g2 ------------------------------------------------------
+    t0 = time.perf_counter()
+    wide = _wide_g2_route(threshold, limit, dev)
+    print(json.dumps({"wide_100k_g2": wide, "card": smi}), flush=True)
+    _phase("wide_g2", t0, qps=round(wide["qps_median"], 2),
+           k2_launches=wide["k2_launches"])
 
     src = "stringsearchlib_tpu_torch/csrc/bitmap_hits.cu"
+    gsrc = "stringsearchlib_tpu_torch/csrc/gather_rows.cu"
     print(json.dumps({"kernels": [{
         "name": "bitmap_hits_bmax",
         "route": "cuda",
@@ -575,7 +1026,17 @@ def main() -> None:
         "max_abs_err": max(k2_err, k2_real_err),
         "ms": k2_timing[256]["k2_ms"],
         "plain_ms": k2_timing[256]["plain_ms"],
-    }]}), flush=True)
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": gsrc,
+        "replaces": f"stringsearchlib_tpu/ops/bitmap_matmul.py:{line}",
+        "launches": gathered["gather_launches"],
+        "max_abs_err": g_err,
+        "ms": gathered["gather_real_rows"]["ms"],
+        "plain_ms": gathered["gather_real_rows"]["plain_ms"],
+    } for name, line in (("gather_rows_dma", 465), ("gather_rows_pallas", 423))]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count,
     }}), flush=True)

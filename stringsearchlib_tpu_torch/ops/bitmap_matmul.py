@@ -1,4 +1,5 @@
-"""Hit counts from a bit-packed gram incidence: kernels K1 and K2 on Hopper.
+"""Hit counts from a bit-packed gram incidence (kernels K1 and K2) and the
+row gather of a packed table (kernels K3 and K4) on Hopper.
 
 PyTorch counterpart of ``stringsearchlib_tpu.ops.bitmap_matmul``.  The
 layout helpers are the reference's, so tables are byte-identical:
@@ -7,13 +8,18 @@ holds term ``j*8*BLKB + p*BLKB + k``; resident tables are tile-major
 ``(ntiles, Gp, BLKB)`` int8 (HostIndex.bitmap_tables).
 
 ``bitmap_hits_bmax`` (K1: hits and 128-term block maxima) and
-``bitmap_hits`` (K2: hits only, the packed sketch's front end) keep the
-reference's contracts and layouts.  On a CUDA tensor each launches its
-entry of the hand-written kernel in ``csrc/bitmap_hits.cu`` (built with
-nvcc for sm_90a into ``build/kernels/`` at first use, bound with ctypes);
-on a CPU tensor it runs its plain PyTorch version (``bitmap_hits_bmax_ref``,
-``bitmap_hits_ref``).  Nothing else chooses between the two: a CUDA tensor
-launches the kernel or raises.
+``bitmap_hits`` (K2: hits only) keep the reference's contracts and layouts;
+on a CUDA tensor each launches its entry of the hand-written kernel in
+``csrc/bitmap_hits.cu``.  ``gather_rows`` (``out[i] = table[rows[i]]`` along
+the gram axis of either layout) launches ``csrc/gather_rows.cu``, which
+serves both of the reference's TPU gathers: ``gather_rows_dma`` (K3) and
+``gather_rows_pallas`` (K4) keep their names, row-major contracts and
+asserts.  Each source is built with nvcc for sm_90a into ``build/kernels/``
+at first use (one nvcc per source, started together) and bound with ctypes.
+On a CPU tensor each wrapper runs its plain PyTorch version
+(``bitmap_hits_bmax_ref``, ``bitmap_hits_ref``, ``gather_rows_ref``).
+Nothing else chooses between the two: a CUDA tensor launches the kernel or
+raises.
 
 The reference's pair dots, 31-window gate, G tiling and VMEM budget exist
 for the TPU's matrix unit and VMEM; the Hopper kernel accumulates every
@@ -45,22 +51,22 @@ _SUBS = TILE_LANES // _BMAX_BLK  # 128-term blocks per layout tile (32)
 # most nonzero qcnt columns a query can hold under the <= 127 contract
 _VMAX = 127
 
-# launches of each CUDA kernel (K1 bitmap_hits_bmax, K2 bitmap_hits), and
-# calls of its plain version made by the wrapper for CPU tensors; plain
-# integers that callers may reset
+# launches of each CUDA kernel (K1 bitmap_hits_bmax, K2 bitmap_hits, and
+# the row gather G that serves K3 and K4), and calls of its plain version
+# made by the wrapper for CPU tensors; plain integers that callers may reset
 K1_LAUNCHES = 0
 K1_REF_CALLS = 0
 K2_LAUNCHES = 0
 K2_REF_CALLS = 0
+G_LAUNCHES = 0
+G_REF_CALLS = 0
 # bytes of the float32 operand the plain versions unpack at a time
 _PLAIN_CHUNK_BYTES = 1 << 30
 
 _ROOT = os.path.join(os.path.dirname(__file__), "..", "..")
-_SRC = os.path.abspath(
-    os.path.join(os.path.dirname(__file__), "..", "csrc", "bitmap_hits.cu")
-)
+_CSRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "csrc"))
 _OUT_DIR = os.path.join(_ROOT, "build", "kernels")
-_LIB = None
+_LIBS: dict = {}
 _LIB_LOCK = threading.Lock()
 
 
@@ -92,46 +98,70 @@ def from_tile_major(planes3):
     return planes3.permute(1, 0, 2).reshape(gp, nt * blkb)
 
 
-def build_kernel() -> str:
-    """Compile csrc/bitmap_hits.cu for sm_90a (when the .so is missing or
-    older than the source) and return the library path.  Raises when nvcc
-    is absent or the compile fails."""
+# every kernel source csrc/<name>.cu: its entries' ctypes argument types
+_ARGTYPES = {
+    "bitmap_hits": {
+        "bitmap_hits_bmax_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+        + [ctypes.c_void_p],
+        "bitmap_hits_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+        + [ctypes.c_void_p],
+    },
+    "gather_rows": {
+        "gather_rows_launch": [ctypes.c_void_p] * 3
+        + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    },
+}
+
+
+def build_kernels() -> dict:
+    """Compile every ``csrc/<name>.cu`` whose ``build/kernels/lib<name>.so``
+    is missing or older than its source, for sm_90a, one nvcc process per
+    source, all started together.  Returns {name: library path}.  Raises
+    when nvcc is absent or a compile fails."""
     os.makedirs(_OUT_DIR, exist_ok=True)
-    so = os.path.abspath(os.path.join(_OUT_DIR, "libbitmap_hits.so"))
-    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(_SRC):
-        return so
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the K1/K2 kernels cannot be built")
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [
-        nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, _SRC,
-    ]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, so)
-    return so
+    out, jobs = {}, []
+    for name in _ARGTYPES:
+        src = os.path.join(_CSRC, f"{name}.cu")
+        so = os.path.abspath(os.path.join(_OUT_DIR, f"lib{name}.so"))
+        out[name] = so
+        if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+            continue
+        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+        if not os.path.exists(nvcc):
+            raise RuntimeError(f"nvcc not found: {name}.cu cannot be built")
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [
+            nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+            "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, src,
+        ]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+        )
+        jobs.append((name, tmp, so, proc))
+    failed = []
+    for name, tmp, so, proc in jobs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu:\n{stdout}\n{stderr}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return out
 
 
-def _lib():
-    global _LIB
+def _lib(name: str = "bitmap_hits"):
+    """The loaded library of ``csrc/<name>.cu`` (building every kernel
+    source at the first call), its entries' argument types set."""
     with _LIB_LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(build_kernel())
-            k1 = lib.bitmap_hits_bmax_launch
-            k1.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-                ctypes.c_void_p
-            ]
-            k1.restype = ctypes.c_int
-            k2 = lib.bitmap_hits_launch
-            k2.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-                ctypes.c_void_p
-            ]
-            k2.restype = ctypes.c_int
-            _LIB = lib
-    return _LIB
+        if not _LIBS:
+            for n, so in build_kernels().items():
+                lib = ctypes.CDLL(so)
+                for fn, argtypes in _ARGTYPES[n].items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+                _LIBS[n] = lib
+    return _LIBS[name]
 
 
 def _compact_qcnt(qcnt):
@@ -278,3 +308,76 @@ def _hits_plain(qcnt, planes, chunk_tiles):
             q @ m.to(torch.float32)
         ).to(torch.int8)
     return hits
+
+
+def gather_rows(planes, rows):
+    """Gram-row gather of a packed table in either layout: row-major (G, NB)
+    -> (Gc, NB), tile-major (ntiles, G, BLKB) -> (ntiles, Gc, BLKB), with
+    ``out[..., i, :] = planes[..., rows[i], :]`` (rows (Gc,) integer, each
+    in [0, G), else IndexError; duplicates allowed).
+
+    CUDA tensors launch the gather kernel (csrc/gather_rows.cu); CPU
+    tensors run the plain version."""
+    global G_LAUNCHES, G_REF_CALLS
+    if planes.ndim not in (2, 3):
+        raise ValueError(f"planes must be (G, NB) or (ntiles, G, {BLKB}), "
+                         f"got {tuple(planes.shape)}")
+    if planes.dtype not in (torch.int8, torch.uint8):
+        raise TypeError(f"planes must be int8, got {planes.dtype}")
+    if rows.ndim != 1 or rows.is_floating_point():
+        raise ValueError(f"rows must be a 1-D integer tensor, got {tuple(rows.shape)}")
+    if rows.device != planes.device:
+        raise ValueError(f"rows on {rows.device}, planes on {planes.device}")
+    if planes.device.type == "cpu":
+        G_REF_CALLS += 1
+        return gather_rows_ref(planes, rows)
+    if planes.device.type != "cuda":
+        raise ValueError(f"unsupported device {planes.device}")
+    outer = 1 if planes.ndim == 2 else planes.shape[0]
+    g, c = planes.shape[-2:]
+    gc = rows.shape[0]
+    if c % 16 or not planes.is_contiguous() or planes.data_ptr() % 16:
+        raise ValueError("planes must be contiguous, 16-byte aligned, with a "
+                         "row length that is a multiple of 16 bytes")
+    out = torch.empty((*planes.shape[:-2], gc, c), dtype=planes.dtype,
+                      device=planes.device)
+    if outer == 0 or gc == 0 or c == 0:
+        return out
+    rows32 = rows.to(torch.int32).contiguous()
+    lo, hi = (int(v) for v in torch.aminmax(rows32))  # the kernel reads rows unchecked
+    if lo < 0 or hi >= g:
+        raise IndexError(f"rows must lie in [0, {g}), got [{lo}, {hi}]")
+    lib = _lib("gather_rows")
+    with torch.cuda.device(planes.device):
+        stream = torch.cuda.current_stream(planes.device).cuda_stream
+        err = lib.gather_rows_launch(
+            planes.data_ptr(), rows32.data_ptr(), out.data_ptr(), outer, g,
+            gc, c // 16, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"gather_rows kernel launch failed: cuda error {err}")
+    G_LAUNCHES += 1
+    return out
+
+
+def gather_rows_ref(planes, rows):
+    """Plain PyTorch version of ``gather_rows``: ``index_select`` on the
+    gram axis."""
+    return planes.index_select(planes.ndim - 2, rows.long())
+
+
+def gather_rows_pallas(table, rows):
+    """Row gather out[i] = table[rows[i]] of a row-major (G, NB) table with
+    NB % 128 == 0 (the reference's K4 contract)."""
+    _, nb = table.shape
+    assert nb % 128 == 0, nb
+    return gather_rows(table, rows)
+
+
+def gather_rows_dma(table, rows):
+    """Row gather out[i] = table[rows[i]] of a row-major (G, NB) table with
+    NB % 1024 == 0, as the PAD_LANES term padding builds it (the reference's
+    K3 contract)."""
+    _, nb = table.shape
+    assert nb % 1024 == 0, nb
+    return gather_rows(table, rows)

@@ -1,14 +1,25 @@
-"""Candidate-sparse batched search: the bitmap-kernel front end with the
-integer h* finish.
+"""Candidate-sparse batched search: the bitmap front ends (full-table and
+gathered-row) with their three finishes.
 
 PyTorch counterpart of the parts of ``stringsearchlib_tpu.search.candidates``
-that the main path runs.  Hit counts for the whole batch come from the K1
-kernel (ops.bitmap_matmul.bitmap_hits_bmax) over the bit-packed incidence;
-``_hstar_finish`` then selects candidates in integer hit space and the
-shared back half ``_finish_selected`` expands edges, scores promotion keys,
-ranks (score desc, key length asc) and sets the exactness guard.  Every
-per-query ``jax.vmap`` body of the reference is written out here with an
-explicit batch dimension.
+that the bitmap routes run.  Hit counts for the whole batch come from K1
+(ops.bitmap_matmul.bitmap_hits_bmax, hits and 128-term block maxima) or K2
+(bitmap_hits, hits only) over the bit-packed incidence - the resident
+table, or on the gathered route (``candidates_bitmap_gather``) the batch's
+own gram rows copied out of it by the gather kernel.  One of three finishes
+then selects candidates:
+
+  * ``_hstar_finish``: integer hit-threshold selection (uniform weights);
+  * ``_blockmax_finish``: block upper bounds from the int8 block maxima and
+    a per-block weight maximum, then exact rescoring of the kept blocks
+    (huge lane spaces, any weights);
+  * ``_dense_hits_finish``: per-lane bounds over the whole hit matrix and
+    ``_select_candidates`` (small lane spaces, any weights);
+
+and the shared back half ``_finish_selected`` expands edges, scores
+promotion keys, ranks (score desc, key length asc) and sets the exactness
+guard.  Every per-query ``jax.vmap`` body of the reference is written out
+here with an explicit batch dimension.
 
 Exactness guarantee (the host falls back to the dense path when it fails):
   * if every passing term was selected and no edge overflowed, scores,
@@ -21,13 +32,20 @@ Ties: ``torch.topk`` promises no order among equal values, where
 ``lax.top_k`` prefers the lower index.  h* keeps every lane at or above its
 level, so which equal lanes a top-k picks never changes an exact row's
 top-limit list; only entries past ``limit`` (never returned) may differ.
+The float selections of the other finishes may keep other equal lanes than
+the reference where a tie straddles a cutoff: the guard bound is the same
+value either way, and only such rows may differ in exact flag or count.
 
 Multi-key sorts are stable single-key sorts applied least-significant key
 first.  Negated scores are canonicalized (+0.0 for -0.0) before sorting so
 a zero score forms one tie class, as in the reference's float comparator.
 
-Not ported yet (ROADMAP): the dense matmul, scan, gathered, blockmax,
-dense-hits and runs front ends and finishes.
+Not ported (ROADMAP): the dense matmul, scan and runs
+front ends; ``topk_guarded``'s approximate mode (selection is exact, so no
+row ever misses); ``BLOCKMAX_IMPL`` (``block_hmax`` is one reduction); the
+gathered route's 8-dot XLA branch (the reference's CPU and ``gc % 32``
+fallback: Gc is a power of two >= 32, and on CPU K1's plain version runs on
+the compact table).
 """
 
 from __future__ import annotations
@@ -238,6 +256,266 @@ def _short_tier(di, qtok, qlen, us, threshold, qlen_f):
     return s_short, pass_short, u_short
 
 
+def block_hmax(hits, nblk: int, blk: int):
+    """(B, nblk*blk) int hits -> (B, nblk) per-contiguous-blk-lane max."""
+    return hits.view(hits.shape[0], nblk, blk).amax(2)
+
+
+def _tight_bound(vals2d, vmin, k: int):
+    """Sound, tie-tight bound on what a per-row top-k of ``vals2d`` dropped.
+
+    ``vmin`` (b,) is each row's k-th selected value.  Where every value
+    >= vmin was selected (count fits k), the dropped maximum is the largest
+    value strictly below vmin; where ties straddle the cutoff the bound
+    stays vmin (the guard escalates those rows)."""
+    n_ge = (vals2d >= vmin[:, None]).sum(1)
+    nxt = torch.where(vals2d < vmin[:, None], vals2d, _NEG_INF).amax(1)
+    return torch.where(n_ge <= k, nxt, vmin)
+
+
+def _select_candidates(u_all, n_pass, *, n_cand: int, block_sel: bool):
+    """Top-``n_cand`` lanes of ``u_all`` (B, N) by upper bound, batched.
+
+    Returns ``(ub, sel, u_c, covered)``: selected bounds and lane indices
+    (B, n_cand), ``u_c`` (B,) a sound upper bound on every unselected lane
+    (-inf when none passes outside the selection), ``covered`` (B,) every
+    passing lane was selected.
+
+    ``block_sel`` prunes in two exact phases: per-128-lane block maxima ->
+    top-``n_cand`` blocks -> top-k over the surviving ``n_cand * 128``
+    lanes; unkept blocks are bounded by the n_cand-th block maximum, which
+    joins the guard bound.  Selection is exact (the reference's approximate
+    mode is not ported), so no row misses."""
+    neg_inf = _NEG_INF
+    b = u_all.shape[0]
+    if not block_sel:
+        ub, sel = topk_chunked(u_all, n_cand)
+        u_c = torch.where(n_pass > n_cand, ub[:, -1], neg_inf)
+        return ub, sel, u_c, n_pass <= n_cand
+
+    n = u_all.shape[1]
+    nb = -(-n // _BLK)
+    up = u_all
+    if nb * _BLK != n:
+        up = torch.cat(
+            [u_all, torch.full((b, nb * _BLK - n), neg_inf,
+                               dtype=u_all.dtype, device=u_all.device)], 1,
+        )
+    up = up.view(b, nb, _BLK)
+    bmax = up.amax(2)
+    kb = min(n_cand, nb)
+    bvals, bsel = topk_chunked(bmax, kb)
+    u2 = up.gather(
+        1, bsel.clamp(0, nb - 1)[:, :, None].expand(-1, -1, _BLK)
+    )
+    # a kept entry with value -inf can be a clamped pad index (chunked
+    # top-k pads its lane space) whose gather read a real block's lanes;
+    # mask those lanes so a term is never selected under a foreign id
+    u2 = torch.where((bvals > neg_inf)[:, :, None], u2, neg_inf).reshape(
+        b, kb * _BLK
+    )
+    ub, ls = topk_chunked(u2, min(n_cand, u2.shape[1]))
+    sel = bsel.gather(1, (ls // _BLK).clamp(0, kb - 1)) * _BLK + ls % _BLK
+
+    blocks_cov = (bmax > neg_inf).sum(1) <= kb
+    sel_cov = (u2 > neg_inf).sum(1) <= n_cand
+    u_b = torch.where(blocks_cov, neg_inf, bvals[:, -1])
+    u_c = torch.maximum(torch.where(sel_cov, neg_inf, ub[:, -1]), u_b)
+    return ub, sel, u_c, blocks_cov & sel_cov
+
+
+def _finish_candidates(
+    di, pt, xt, u_all, s_all, gid_all, n_pass, term_score, promo_pack,
+    limits, threshold, *, n_cand, n_edge, top_k, block_sel=False,
+):
+    """From per-lane upper bounds and scores (B, N) and the lanes' global
+    term ids ``gid_all`` (N,) to the final ranked slice (passing lanes
+    carry u = wmax * s, others -inf)."""
+    ub, sel, u_c, covered = _select_candidates(
+        u_all, n_pass, n_cand=n_cand, block_sel=block_sel
+    )
+    sel_valid = ub > _NEG_INF
+    sel_c = sel.clamp(0, gid_all.shape[0] - 1)
+    return _finish_selected(
+        di, pt, xt, gid_all[sel_c], s_all.gather(1, sel_c), sel_valid, u_c,
+        covered, term_score, promo_pack, limits, threshold, n_edge=n_edge,
+        top_k=top_k,
+    )
+
+
+def _short_terms(di, qtokens, qlens, use_short, thr):
+    """The short tier's scores, pass flags and bounds, each (B, Ts)."""
+    qlen_f = torch.clamp(qlens.to(torch.float32), min=1.0)
+    return _short_tier(di, qtokens, qlens, use_short, thr, qlen_f)
+
+
+def _term_scorer(hits, n_qgrams, thr, ts, short=None):
+    """``term_score(p_t) -> (score, pass)`` at arbitrary global term ids
+    (B, ...), as the promotion keys' edges need them: long-tier terms scored
+    exactly from ``hits`` (B, Tl_pad), short-tier terms read from ``short =
+    (s_short, pass_short)`` (B, Ts) where the short tier was scored, and
+    never passing where it was not."""
+    b, tlp = hits.shape
+    nqg = n_qgrams.to(torch.int32)
+    nqg_f = torch.clamp(nqg.to(torch.float32), min=1.0)
+
+    def term_score(p_t):
+        shape = (b,) + (1,) * (p_t.ndim - 1)
+        h = hits.gather(
+            1, (p_t - ts).clamp(0, tlp - 1).reshape(b, -1).long()
+        ).view(p_t.shape).to(torch.float32)
+        s = h / nqg_f.view(shape)
+        ok = (h > 0) & (nqg.view(shape) > 0) & (s >= thr)
+        if short is None or not ts:
+            return s, (p_t >= ts) & ok
+        idx = p_t.clamp(0, ts - 1).reshape(b, -1).long()
+        p_sh = p_t < ts
+        return (
+            torch.where(p_sh, short[0].gather(1, idx).view(p_t.shape), s),
+            torch.where(p_sh, short[1].gather(1, idx).view(p_t.shape), ok),
+        )
+
+    return term_score
+
+
+def _dense_hits_finish(
+    di, pt, xt, hits, qtokens, qlens, n_qgrams, use_short, promo_ids,
+    promo_terms, promo_weights, limits, threshold, *, compute_short,
+    n_cand, n_edge, top_k, block_sel,
+):
+    """Back half for front ends that produce a dense (B, Tl_pad) exact hit
+    matrix: per-lane scores and bounds over the whole lane space,
+    ``_select_candidates``, then the shared back half.  ``hits`` may be any
+    integer or float dtype; columns beyond di.n_long are padding (wmax 0,
+    primary key -1) and never reach a key."""
+    ts, tl = di.n_short, di.n_long
+    tlp = hits.shape[1]
+    dev = hits.device
+    thr = _f32(threshold)
+    h = hits.to(torch.float32)
+    nqg = n_qgrams.to(torch.int32)
+    nqg_f = torch.clamp(nqg.to(torch.float32), min=1.0)
+    s_long = h / nqg_f[:, None]
+    pass_long = (h > 0) & (nqg[:, None] > 0) & (s_long >= thr)
+    del h
+    n_pass = pass_long.sum(1)
+    wmax_long = di.term_wmax[ts:]
+    if tlp > tl:
+        wmax_long = torch.cat([
+            wmax_long, torch.zeros(tlp - tl, dtype=wmax_long.dtype, device=dev)
+        ])
+    u_long = torch.where(pass_long, wmax_long[None, :] * s_long, _NEG_INF)
+    del pass_long
+    gid_long = ts + torch.clamp(torch.arange(tlp, device=dev), max=max(tl - 1, 0))
+    short = None
+    if compute_short:
+        s_short, pass_short, u_short = _short_terms(
+            di, qtokens, qlens, use_short, thr
+        )
+        short = (s_short, pass_short)
+        n_pass = n_pass + pass_short.sum(1)
+        u_all = torch.cat([u_short, u_long], 1)
+        s_all = torch.cat([s_short, s_long], 1)
+        gid_all = torch.cat([torch.arange(ts, device=dev), gid_long])
+    else:
+        u_all, s_all, gid_all = u_long, s_long, gid_long
+    term_score = _term_scorer(hits, n_qgrams, thr, ts, short)
+    return _finish_candidates(
+        di, pt, xt, u_all, s_all, gid_all, n_pass, term_score,
+        (promo_ids, promo_terms, promo_weights), limits, threshold,
+        n_cand=n_cand, n_edge=n_edge, top_k=top_k, block_sel=block_sel,
+    )
+
+
+def _blockmax_finish(
+    di, pt, xt, hits, qtokens, qlens, n_qgrams, use_short, promo_ids,
+    promo_terms, promo_weights, limits, threshold, *, compute_short,
+    n_cand, n_edge, top_k, hmax=None, blk=_BLK, kb_lanes=0,
+):
+    """Back half for huge dense hit matrices: no (B, Tl) float32 tensor.
+
+    An int8 block maximum of the hits (``hmax``, fused into K1 or taken by
+    ``block_hmax``) and a per-block weight maximum give an upper bound on
+    each block's best u = wmax * hits/n_qgrams (negative-weight blocks are
+    bounded by wblk * threshold: u is then largest at the smallest passing
+    score).  Blocks are selected by that bound, their lanes gathered as
+    contiguous ``blk``-lane rows and rescored exactly, and only those
+    kb * blk lanes pay float32 math and the lane top-k.  ``kb_lanes`` > 0
+    fixes the kept-lane budget instead of n_cand blocks.  Guard bounds are
+    tie-tight (``_tight_bound``) at both levels."""
+    ts, tl = di.n_short, di.n_long
+    b, tlp = hits.shape
+    dev = hits.device
+    neg_inf = _NEG_INF
+    thr = _f32(threshold)
+    nblk = tlp // blk
+    nqg = n_qgrams.to(torch.int32)
+    nqg_f = torch.clamp(nqg.to(torch.float32), min=1.0)
+    wpad = di.term_wmax[ts:]
+    if tlp > tl:
+        wpad = torch.cat([wpad, torch.zeros(tlp - tl, dtype=wpad.dtype, device=dev)])
+    wpad2 = wpad.view(nblk, blk)
+    h3 = hits.view(b, nblk, blk)
+    if hmax is None:  # not fused into the hits kernel
+        hmax = block_hmax(hits, nblk, blk)
+    smax = hmax.to(torch.float32) / nqg_f[:, None]
+    wblk = wpad2.amax(1)  # (nblk,)
+    nonempty = (hmax > 0) & (nqg[:, None] > 0) & (smax >= thr)
+    ub_blk = torch.where(wblk[None, :] >= 0, wblk[None, :] * smax, wblk[None, :] * thr)
+    bmax = torch.where(nonempty, ub_blk, neg_inf)  # (b, nblk) upper bounds
+    del smax, nonempty, ub_blk
+    kb = min(max(kb_lanes // blk, 16) if kb_lanes else n_cand, nblk)
+    blocks_cov = (bmax > neg_inf).sum(1) <= kb
+    bvals, bsel = topk_chunked(bmax, kb)
+    u_b = torch.where(blocks_cov, neg_inf, _tight_bound(bmax, bvals[:, -1], kb))
+    del bmax
+    bsel_c = bsel.clamp(0, nblk - 1)
+    hb = h3.gather(1, bsel_c[:, :, None].expand(-1, -1, blk))  # (b, kb, blk)
+    s2 = hb.to(torch.float32) / nqg_f[:, None, None]
+    # lanes of invalid kept blocks are masked: a clamped pad index reads a
+    # real block's lanes, which must never be selected under its id
+    pass2 = (
+        (hb > 0) & (nqg[:, None, None] > 0) & (s2 >= thr)
+        & (bvals > neg_inf)[:, :, None]
+    )
+    del hb
+    u2 = torch.where(pass2, wpad2[bsel_c] * s2, neg_inf).reshape(b, kb * blk)
+    del pass2
+    s2f = s2.reshape(b, kb * blk)
+    col2 = (bsel_c[:, :, None] * blk + torch.arange(blk, device=dev)).reshape(
+        b, kb * blk
+    )
+
+    short = None
+    if compute_short:
+        s_short, pass_short, u_short = _short_terms(
+            di, qtokens, qlens, use_short, thr
+        )
+        short = (s_short, pass_short)
+        u_cat = torch.cat([u_short, u2], 1)
+        s_cat = torch.cat([s_short, s2f], 1)
+        gid_cat = torch.cat(
+            [torch.arange(ts, device=dev).expand(b, ts), ts + col2], 1
+        )
+    else:
+        u_cat, s_cat, gid_cat = u2, s2f, ts + col2
+    term_score = _term_scorer(hits, n_qgrams, thr, ts, short)
+    ub, ls = topk_chunked(u_cat, min(n_cand, u_cat.shape[1]))
+    sel_valid = ub > neg_inf
+    lsc = ls.clamp(0, gid_cat.shape[1] - 1)
+    t_sel = gid_cat.gather(1, lsc)
+    s_sel = s_cat.gather(1, lsc)
+    sel_cov = (u_cat > neg_inf).sum(1) <= ub.shape[1]
+    lane_bound = _tight_bound(u_cat, ub[:, -1], ub.shape[1])
+    u_c = torch.maximum(torch.where(sel_cov, neg_inf, lane_bound), u_b)
+    covered = blocks_cov & sel_cov
+    return _finish_selected(
+        di, pt, xt, t_sel, s_sel, sel_valid, u_c, covered, term_score,
+        (promo_ids, promo_terms, promo_weights), limits, threshold,
+        n_edge=n_edge, top_k=top_k,
+    )
+
+
 def _count_ge(x, vmax: int):
     """(B, N) integer levels -> (B, vmax) int32 counts of entries >= v for
     v = 1..vmax: one histogram (scatter-add, no host sync) and a suffix
@@ -402,21 +680,14 @@ def _hstar_finish(
         lanes_cov, neg_inf, (h_lane.to(torch.float32) - 1.0) / nqg_f
     )
 
-    def s_at(col):  # exact long-tier scores at arbitrary columns (b, ...)
-        h = hits.gather(
-            1, col.clamp(0, tlp - 1).reshape(b, -1).long()
-        ).view(col.shape).to(torch.float32)
-        shape = (b,) + (1,) * (col.ndim - 1)
-        s = h / nqg_f.view(shape)
-        return s, (h > 0) & (nqg.view(shape) > 0) & (s >= thr)
-
+    short = None
     if compute_short:
         # short-tier DP scores are fractional: float selection over the
         # concatenated lane space
-        qlen_f = torch.clamp(qlens.to(torch.float32), min=1.0)
-        s_short, pass_short, u_short = _short_tier(
-            di, qtokens, qlens, use_short, thr, qlen_f
+        s_short, pass_short, u_short = _short_terms(
+            di, qtokens, qlens, use_short, thr
         )
+        short = (s_short, pass_short)
         u2r = torch.where(
             hbp > 0, hbp.to(torch.float32) / nqg_f[:, None], neg_inf
         )
@@ -430,19 +701,6 @@ def _hstar_finish(
             1,
         )
         npi = n_pass_in + pass_short.sum(1)
-
-        def term_score(p_t):
-            p_sh = p_t < ts
-            idx = p_t.clamp(0, max(ts - 1, 0)).reshape(b, -1).long()
-            if ts:
-                p_ss = s_short.gather(1, idx).view(p_t.shape)
-                p_ps = pass_short.gather(1, idx).view(p_t.shape)
-            else:
-                p_ss = torch.zeros(p_t.shape, dtype=torch.float32, device=dev)
-                p_ps = torch.zeros(p_t.shape, dtype=torch.bool, device=dev)
-            p_sl, p_okl = s_at(p_t - ts)
-            return torch.where(p_sh, p_ss, p_sl), torch.where(p_sh, p_ps, p_okl)
-
         ub, ls = topk_chunked(u_cat, min(n_cand, u_cat.shape[1]))
         sel_valid = ub > neg_inf
         lsc = ls.clamp(0, gid_cat.shape[1] - 1)
@@ -455,10 +713,6 @@ def _hstar_finish(
         )
         covered = covered_blocks & sel_cov & cov32
     else:
-        def term_score(p_t):
-            s, ok = s_at(p_t - ts)
-            return s, (p_t >= ts) & ok
-
         hv, ls = topk_chunked(hbp, min(n_cand, hbp.shape[1]))
         sel_valid = hv > 0
         lsc = ls.clamp(0, col2.shape[1] - 1)
@@ -467,7 +721,8 @@ def _hstar_finish(
         u_c = torch.maximum(torch.maximum(u_lane, u_blk), u_sub)
         covered = covered_blocks & lanes_cov & cov32
     return _finish_selected(
-        di, pt, xt, t_sel, s_sel, sel_valid, u_c, covered, term_score,
+        di, pt, xt, t_sel, s_sel, sel_valid, u_c, covered,
+        _term_scorer(hits, n_qgrams, thr, ts, short),
         (promo_ids, promo_terms, promo_weights), limits, threshold,
         n_edge=n_edge, top_k=top_k,
     )
@@ -503,32 +758,116 @@ def candidates_bitmap_mxu(
     n_cand: int,
     n_edge: int,
     top_k: int,
+    block_sel: bool = False,
+    fused_bmax: bool = False,
+    bmax_blk: int = _BLK,
+    kb_lanes: int = 0,
+    hstar: bool = False,
     kb1: int = 512,
     kb2: int = 512,
     hs_fill: int = 2,
     keep_hits: bool = False,
 ):
-    """Exact hit counts via K1 over the packed incidence, then the h*
-    finish (the reference's candidates_bitmap_mxu with ``hstar=True``).
+    """Exact hit counts via K1 or K2 over the packed incidence, then one of
+    three finishes, as the reference's candidates_bitmap_mxu:
+
+      * ``hstar`` (uniform weights): K1, the h* finish; with ``keep_hits``
+        the hits and block maxima come back too, for the selection-only
+        retry;
+      * ``block_sel``: ``_blockmax_finish`` on K1's block maxima
+        (``fused_bmax``, 128-term blocks) or on K2's hits and
+        ``block_hmax`` at ``bmax_blk``;
+      * otherwise K2 and ``_dense_hits_finish``.
+
     Counts are exact while every query holds <= 127 gram windows, which the
-    engine gates on the slot-matrix width.  With ``keep_hits`` the hits and
-    block maxima come back too, for the selection-only retry."""
-    from ..ops.bitmap_matmul import bitmap_hits_bmax
+    engine gates on the slot-matrix width."""
+    from ..ops.bitmap_matmul import bitmap_hits, bitmap_hits_bmax
 
     compute_short = compute_short and di.n_short > 0
-    gp = bitmap.shape[1]
-    qcnt = query_counts(qslots, gp)
-    hits, hmax = bitmap_hits_bmax(qcnt, bitmap)
-    res = _hstar_finish(
-        di, pt, xt, hits, hmax, qtokens, qlens, n_qgrams, use_short,
-        promo_ids, promo_terms, promo_weights, limits, threshold,
-        compute_short=compute_short, kb1=kb1, kb2=kb2, n_cand=n_cand,
-        n_edge=n_edge, top_k=top_k, vmax=int(qslots.shape[1]), blk=_BLK,
-        fill=hs_fill,
+    qcnt = query_counts(qslots, bitmap.shape[1])
+    kw = dict(compute_short=compute_short, n_cand=n_cand, n_edge=n_edge,
+              top_k=top_k)
+    args = (qtokens, qlens, n_qgrams, use_short, promo_ids, promo_terms,
+            promo_weights, limits, threshold)
+    if hstar:
+        hits, hmax = bitmap_hits_bmax(qcnt, bitmap)
+        res = _hstar_finish(
+            di, pt, xt, hits, hmax, *args, kb1=kb1, kb2=kb2,
+            vmax=int(qslots.shape[1]), blk=_BLK, fill=hs_fill, **kw,
+        )
+        if keep_hits:
+            return res + (hits, hmax)
+        return res
+    if block_sel:
+        if fused_bmax:
+            hits, hmax = bitmap_hits_bmax(qcnt, bitmap)
+            blk = _BLK
+        else:
+            hits, hmax, blk = bitmap_hits(qcnt, bitmap), None, bmax_blk
+        return _blockmax_finish(
+            di, pt, xt, hits, *args, hmax=hmax, blk=blk, kb_lanes=kb_lanes,
+            **kw,
+        )
+    return _dense_hits_finish(
+        di, pt, xt, bitmap_hits(qcnt, bitmap), *args, block_sel=False, **kw
     )
-    if keep_hits:
-        return res + (hits, hmax)
-    return res
+
+
+def candidates_bitmap_gather(
+    di,
+    bitmap,  # (ntiles, G_pad, BLKB) int8 tile-major packed incidence (full)
+    rows,  # (Gc,) int32 the batch's gram-union table rows (padded)
+    pt,
+    xt,
+    qtokens,
+    qlens,
+    qslots,  # (B, Qmax) int32 slots remapped into [0, Gc), -1 absent
+    n_qgrams,
+    use_short,
+    promo_ids,
+    promo_terms,
+    promo_weights,
+    limits,
+    threshold,
+    *,
+    compute_short: bool,
+    n_cand: int,
+    n_edge: int,
+    top_k: int,
+    block_sel: bool = False,
+    hstar: bool = False,
+    kb1: int = 512,
+    kb2: int = 512,
+    hs_fill: int = 2,
+):
+    """Small-batch bitmap front end: hits from the batch's own gram rows.
+
+    The gather kernel (ops.bitmap_matmul.gather_rows) copies the Gc union
+    rows out of every layout tile of the resident table into a compact
+    (ntiles, Gc, BLKB) table, K1 counts hits and block maxima on it (Gc is a
+    power of two >= 32, K1's Gp rule), and the h*, blockmax or dense-hits
+    finish follows as on the full-table route: the compact table's columns
+    are the full table's, in the same term order.  The reference's 8-dot
+    XLA branch (its CPU and ``gc % 32`` fallback) is not needed: on CPU,
+    K1's plain version runs on the compact table."""
+    from ..ops.bitmap_matmul import bitmap_hits_bmax, gather_rows
+
+    compute_short = compute_short and di.n_short > 0
+    compact = gather_rows(bitmap, rows)
+    hits, hmax = bitmap_hits_bmax(query_counts(qslots, rows.shape[0]), compact)
+    del compact
+    kw = dict(compute_short=compute_short, n_cand=n_cand, n_edge=n_edge,
+              top_k=top_k)
+    args = (qtokens, qlens, n_qgrams, use_short, promo_ids, promo_terms,
+            promo_weights, limits, threshold)
+    if hstar:
+        return _hstar_finish(
+            di, pt, xt, hits, hmax, *args, kb1=kb1, kb2=kb2,
+            vmax=int(qslots.shape[1]), blk=_BLK, fill=hs_fill, **kw,
+        )
+    if block_sel:
+        return _blockmax_finish(di, pt, xt, hits, *args, hmax=hmax, blk=_BLK, **kw)
+    return _dense_hits_finish(di, pt, xt, hits, *args, block_sel=False, **kw)
 
 
 def hstar_retry(

@@ -12,11 +12,14 @@ an explicit batch dimension where the reference vmapped.
      nGramSearch.h:262-269) -> top-k slice + reached count.
 
 Batched searches on large indexes take a candidate route (``_cand_pass``):
-K1 hit counts over the packed incidence with the integer h* finish and a
-selection-only retry on the retained hits, or - for indexes whose packed
-incidence is over budget, weighted or not - K2 over the packed bucket
-sketch with exact rescoring and one full retry pass at wider budgets.  Rows
-whose exactness guard still fails take the dense path.
+over the packed incidence, K1 hit counts with the integer h* finish and a
+selection-only retry on the retained hits (uniform weights), or K1/K2 with
+the blockmax or dense-hits finish (any weights); for batches of at most
+GATHER_BATCH queries, optionally the same over the batch's own gram rows
+(the gathered-row route); for indexes whose packed incidence is over
+budget, K2 over the packed bucket sketch with exact rescoring.  Non-h*
+routes escalate through one full pass at wider budgets.  Rows whose
+exactness guard still fails take the dense path.
 """
 
 from __future__ import annotations
@@ -28,7 +31,9 @@ from ..config import INT32_MAX, PERFECT_SCORE_CUTOFF, PROMOTED_SCORE
 from ..core import grams as gramlib
 from ..core import text as textlib
 from ..index.build import HostIndex
-from .candidates import _BLK, _f32, candidates_bitmap_mxu, hstar_retry
+from .candidates import (
+    _BLK, _f32, candidates_bitmap_gather, candidates_bitmap_mxu, hstar_retry,
+)
 from .editdist import dp_match, dp_match_tiered
 from .overlap import gather_hits
 from .sketch import candidates_sketch
@@ -687,18 +692,39 @@ class SearchEngine:
     SK_KB = 1024
     # batches this small on large indexes go to the reference's sorted-runs
     # route when each query's posting mass fits RUNS_TINY_LANES; the port
-    # has no runs route, so they take the dense path
+    # has no runs route, so they keep the h* kernel route where the index
+    # is uniform and take the dense path otherwise
     RUNS_TINY_BATCH = 8
     RUNS_TINY_LANES = 1 << 20
+    # batches of at most GATHER_BATCH queries may take the gathered-row
+    # route (candidates_bitmap_gather): the gather kernel copies the batch's
+    # gram-union rows (<= GATHER_ROWS_MAX) out of the resident table and K1
+    # runs on that compact table.  The reference takes it on row-major
+    # tables only; resident tables are tile-major, so BITMAP_GATHER_TMAJ
+    # forces it (the reference's switch, off by default)
+    GATHER_BATCH = 8
+    GATHER_ROWS_MAX = 512
+    BITMAP_GATHER_TMAJ = False
+    # the fused block-max epilogue (K1) on the non-h* blockmax finish:
+    # forced by BITMAP_FUSED_BMAX, else taken once the padded long tier
+    # reaches BITMAP_FUSED_MIN_TLP lanes; the h* finish always takes it.
+    # BITMAP_BMAX_BLK is block_hmax's block width on the K2 blockmax
+    # finish; BITMAP_KB_LANES > 0 fixes that finish's kept-lane budget
+    # (0 = n_cand blocks).  All at the reference's values
+    BITMAP_FUSED_BMAX = False
+    BITMAP_FUSED_MIN_TLP = 4 << 20
+    BITMAP_BMAX_BLK = 128
+    BITMAP_KB_LANES = 0
 
     def _run_candidate_chunks(self, items, threshold, limit, batch_bucket, qp, out):
         """Candidate batches; returns the rows that need the dense path.
 
         The first pass selects at CAND_TERMS_FAST-scale budgets.  Rows whose
         exactness guard fails re-select at CAND_TERMS-scale budgets: from
-        the retained hits on the h* route (selection only, no second table
-        stream), through one full second pass on the sketch route (which
-        records ``retry_full``).  Rows that still fail go dense."""
+        the retained hits on the full-table h* route (selection only, no
+        second table stream), through one full second pass on every other
+        route (which records ``retry_full``).  Rows that still fail go
+        dense."""
         retry, n_used, n_avail, sel_ctx = self._cand_pass(
             items, threshold, limit, batch_bucket, qp, out,
             self.CAND_TERMS_FAST,
@@ -789,27 +815,55 @@ class SearchEngine:
                 still.append(item)
         return still
 
+    def _gather_rows_plan(self, slots: np.ndarray):
+        """Gathered-row plan for a small batch: (rows (gc,) int32 table rows
+        to gather, slot matrix remapped into [0, gc), gc) or None when the
+        gram union is empty or exceeds GATHER_ROWS_MAX.  gc is a power of
+        two >= 32 (K1's Gp rule); padding rows duplicate row 0 and no
+        remapped slot references them."""
+        used = np.unique(slots[slots >= 0])
+        if used.size == 0 or used.size > self.GATHER_ROWS_MAX:
+            return None
+        gc = _next_pow2(int(used.size), 32)
+        rows = np.zeros(gc, np.int32)
+        rows[: used.size] = used
+        out = np.full(slots.shape, -1, np.int32)
+        mask = slots >= 0
+        out[mask] = np.searchsorted(used, slots[mask]).astype(np.int32)
+        return rows, out, gc
+
     def _cand_pass(self, items, threshold, limit, batch_bucket, qp, out, cand_cap):
         """One candidate sweep at selection width ``cand_cap``.
 
-        Two rungs, with the reference's gates in the reference's order:
+        The reference's gates, in the reference's order:
 
-          * ``bitmap_kernel`` + h*: the packed table fits BITMAP_BUDGET,
-            every edge weight is 1, queries hold <= 127 gram windows and the
-            lane space dwarfs the h* budgets: K1 hit counts, the h* finish,
-            and (with the hits retained) the selection-only retry;
-          * ``sketch_packed``: the packed table does not fit BITMAP_BUDGET,
-            the index holds >= SKETCH_MIN_TERMS terms, the batch is not one
-            the reference sends to its tiny sorted-runs route, queries hold
-            <= 127 gram windows and the sketch fits SKETCH_BUDGET: K2 over
-            the packed bucket sketch and exact rescoring.
+          * tiny runs: at most RUNS_TINY_BATCH queries whose posting mass
+            fits RUNS_TINY_LANES, on an index of >= SKETCH_MIN_TERMS terms,
+            go to the reference's sorted-runs route, which the port does not
+            have: they keep the full-table h* route where the index is
+            uniform and h*-eligible, and take the dense path otherwise;
+          * the packed table fits BITMAP_BUDGET and queries hold <= 127 gram
+            windows: the bitmap routes.  With BITMAP_GATHER_TMAJ, batches of
+            <= GATHER_BATCH queries whose gram union fits GATHER_ROWS_MAX
+            take ``bitmap_gather`` (the gather kernel, then K1 on the
+            compact table); the rest ``bitmap_kernel`` over the whole table.
+            The finish is h* where every edge weight is 1 and the lane space
+            dwarfs the h* budgets; else the blockmax finish where it dwarfs
+            n_cand blocks (``block_sel``; fused K1 block maxima when
+            ``fused_bmax``, else K2 and ``block_hmax``); else K2 and the
+            dense-hits finish.  As in the reference, h* eligibility forces
+            ``fused_bmax`` before the lane-space check can turn h* off;
+          * the packed table does not fit, the index holds >=
+            SKETCH_MIN_TERMS terms, queries hold <= 127 gram windows and the
+            sketch fits SKETCH_BUDGET: ``sketch_packed``, K2 over the packed
+            bucket sketch and exact rescoring.
 
         Batches the reference sends to routes the port does not have - the
-        tiny sorted runs, the unpacked sketch (more than 127 windows), the
-        weighted and non-h* bitmap finishes - go to the dense path
-        unchanged: a routing decision with the same results, independent of
-        the device.  Returns (rows for the dense path, n_cand, selectable
-        lanes, retry context)."""
+        tiny sorted runs, the unpacked sketch and the bitmap scan (more
+        than 127 windows) - go to the dense path unchanged: a routing
+        decision with the same results, independent of the device.
+        Returns (rows for the dense path, n_cand, selectable lanes, retry
+        context)."""
         di = self.host.device
         ts, tl = di.n_short, di.n_long
         x_total = int(di.extra_key.shape[0])
@@ -827,30 +881,51 @@ class SearchEngine:
         hs_kb2 = self.HSTAR_KB2 * hs_scale
         hs_fill = self.HSTAR_FILL if cand_cap == self.CAND_TERMS_FAST else 0
         int8_counts = slots.shape[1] <= 127  # K1/K2 count contract
-        bm = sk = None
-        if self.HSTAR_SEL and self.host.uniform_weights and int8_counts:
-            bm = self.host.bitmap_tables(self.BITMAP_BUDGET)
-        # the batches the reference sends to its tiny sorted-runs route
-        tiny_batch = (
-            len(items) <= self.RUNS_TINY_BATCH and s_cap <= self.RUNS_TINY_LANES
+        tiny_runs = (
+            self.host.n_terms >= self.SKETCH_MIN_TERMS
+            and len(items) <= self.RUNS_TINY_BATCH
+            and s_cap <= self.RUNS_TINY_LANES
         )
+        uniform_hstar = self.HSTAR_SEL and self.host.uniform_weights
+        bm = sk = None
+        if int8_counts and (uniform_hstar or not tiny_runs):
+            bm = self.host.bitmap_tables(self.BITMAP_BUDGET)
         if (
             bm is None
             and not self.host.bitmap_fits(self.BITMAP_BUDGET)
             and self.host.n_terms >= self.SKETCH_MIN_TERMS
-            and not tiny_batch
+            and not tiny_runs
             and self.SKETCH_PACKED
             and int8_counts
         ):
             sk = self.host.sketch_tables(self.SKETCH_BUDGET)
+        gplan = None
         if bm is not None:
             tlp = int(bm[1])
             n_lanes = (ts if compute_short else 0) + tlp
+            if (
+                not tiny_runs
+                and len(items) <= self.GATHER_BATCH
+                and self.BITMAP_GATHER_TMAJ
+            ):
+                gplan = self._gather_rows_plan(slots)
+            bm_fused = self.BITMAP_FUSED_BMAX or tlp >= self.BITMAP_FUSED_MIN_TLP
+            if uniform_hstar:
+                bm_fused = True
+            # the reference's budget: the hits (twice where block_hmax
+            # takes a separate pass) and ~16 B per kept lane of the
+            # finish's gathers
+            blk_eff = _BLK if bm_fused else self.BITMAP_BMAX_BLK
+            kept = hs_kb2 if uniform_hstar else cand_cap
+            per_q = (tlp if bm_fused else 2 * tlp) + 16 * kept * blk_eff
+            bm_hstar = uniform_hstar and n_lanes >= 4 * hs_kb2 * _BLK
+            if tiny_runs and not bm_hstar:
+                bm = None
         else:
             n_lanes = (ts if compute_short else 0) + tl
         n_cand = min(cand_cap, max(_next_pow2(n_lanes, 16), 16), n_lanes)
-        use_kernel = bm is not None and n_lanes >= 4 * hs_kb2 * _BLK
-        if not use_kernel and sk is None:
+        block_sel = bool(n_lanes >= 4 * n_cand * _BLK)
+        if bm is None and sk is None:
             self.last_routing = {
                 "variant": "dense",
                 "step": self._batch_cap(batch_bucket),
@@ -861,10 +936,7 @@ class SearchEngine:
             }
             return list(items), n_cand, n_lanes, None
 
-        if use_kernel:
-            # the retained hits and the h* gathers (~16 B per kept lane)
-            per_q = tlp + 16 * hs_kb2 * _BLK
-        else:
+        if bm is None:
             # the reference's sketch budget; the port holds the int8 hits
             # and ~14 B per kept block lane, its block maxima built in
             # fixed-size slabs (search.sketch)
@@ -874,36 +946,58 @@ class SearchEngine:
         step = 8
         while step * 2 <= min(cap, batch_bucket):
             step *= 2
-        keep_sel = use_kernel and cand_cap == self.CAND_TERMS_FAST
         pt, xt = self.host.prim_tables()
-        if use_kernel:
+        bm_gather = gplan is not None
+        keep_sel = bm is not None and not bm_gather and bm_hstar and (
+            cand_cap == self.CAND_TERMS_FAST
+        )
+        self.last_routing = {
+            "variant": "sketch_packed",
+            "step": step,
+            "n_cand": n_cand,
+            "block_sel": block_sel,
+            "approx_sel": False,
+        }
+        bm_slots = slots
+        if bm is not None:
             bm_table = bm[0]
-            self.last_routing = {
-                "variant": "bitmap_kernel",
-                "step": step,
-                "n_cand": n_cand,
-                "block_sel": bool(n_lanes >= 4 * n_cand * _BLK),
-                "approx_sel": False,
-                "gp_rows": int(bm_table.shape[1]),
-                "gtile": False,
-                "fused_bmax": True,
-                "bmax_blk": _BLK,
-                "compact_rows": 0,
-                "virtual": False,
-                "hstar": True,
-                "pair_dots": False,
-                "kb1": hs_kb1,
-                "kb2": hs_kb2,
-            }
+            self.last_routing.update(
+                variant="bitmap_gather" if bm_gather else "bitmap_kernel",
+                gp_rows=int(bm_table.shape[1]),
+                gtile=False,
+                fused_bmax=bool(bm_fused and not bm_gather),
+                bmax_blk=int(self.BITMAP_BMAX_BLK),
+                compact_rows=0,
+                virtual=False,
+                hstar=bool(bm_hstar),
+                pair_dots=False,
+            )
+            if bm_gather:
+                g_rows, bm_slots, g_gc = gplan
+                self.last_routing["gather_rows"] = int(g_gc)
+                rows_d = self._t(g_rows)
+            hs_kw = {}
+            if bm_hstar:
+                self.last_routing.update(kb1=hs_kb1, kb2=hs_kb2)
+                hs_kw = dict(hstar=True, kb1=hs_kb1, kb2=hs_kb2, hs_fill=hs_fill)
 
             def front(sl, lim_d):
+                args = (
+                    qtok_d[sl], qlens_d[sl], slots_d[sl], nqg_d[sl],
+                    ushort_d[sl], promo_d[sl], promo_t_d[sl], promo_w_d[sl],
+                    lim_d, np.float32(threshold),
+                )
+                kw = dict(compute_short=compute_short, n_cand=n_cand,
+                          n_edge=n_edge, top_k=top_k, block_sel=block_sel,
+                          **hs_kw)
+                if bm_gather:
+                    return candidates_bitmap_gather(
+                        di, bm_table, rows_d, pt, xt, *args, **kw
+                    )
                 return candidates_bitmap_mxu(
-                    di, bm_table, pt, xt, qtok_d[sl], qlens_d[sl],
-                    slots_d[sl], nqg_d[sl], ushort_d[sl], promo_d[sl],
-                    promo_t_d[sl], promo_w_d[sl], lim_d,
-                    np.float32(threshold), compute_short=compute_short,
-                    n_cand=n_cand, n_edge=n_edge, top_k=top_k, kb1=hs_kb1,
-                    kb2=hs_kb2, hs_fill=hs_fill, keep_hits=keep_sel,
+                    di, bm_table, pt, xt, *args, fused_bmax=bm_fused,
+                    bmax_blk=self.BITMAP_BMAX_BLK,
+                    kb_lanes=self.BITMAP_KB_LANES, keep_hits=keep_sel, **kw,
                 )
         else:
             inc, tg, wmax_pad, d_log2 = sk
@@ -915,13 +1009,6 @@ class SearchEngine:
             n_short_cand = min(
                 max(_next_pow2(min(ts, 512), 16), 16), max(ts, 1)
             )
-            self.last_routing = {
-                "variant": "sketch_packed",
-                "step": step,
-                "n_cand": n_cand,
-                "block_sel": bool(n_lanes >= 4 * n_cand * _BLK),
-                "approx_sel": False,
-            }
 
             def front(sl, lim_d):
                 return candidates_sketch(
@@ -945,16 +1032,18 @@ class SearchEngine:
         # arrays go to the device once and chunks slice them there
         qtok_d = self._t(qtok)
         qlens_d = self._t(qlens)
-        slots_d = self._t(slots)
+        slots_d = self._t(bm_slots)
         nqg_d = self._t(nqg)
         ushort_d = self._t(use_short)
         promo_d = self._t(promo_all)
         promo_t_d = self._t(promo_t)
         promo_w_d = self._t(promo_w)
+        # the gathered route pads its chunks to 8 queries, the others to 16
+        min_b = 8 if bm_gather else 16
         pending = []
         for lo in range(0, len(items), step):
             hi = min(lo + step, len(items))
-            b = _next_pow2(hi - lo, min(step, 16))
+            b = _next_pow2(hi - lo, min(step, min_b))
             lim_d = torch.full(
                 (b,), min(limit, 2**30), dtype=torch.int32, device=self.device
             )

@@ -150,6 +150,9 @@ def test_edge_queries_match_jax(pair):
 
 
 def test_weighted_index_takes_dense_route(monkeypatch):
+    """A weighted index never takes h* (its guard bound needs every edge
+    weight to be 1): its batches take the bitmap route with the dense-hits
+    finish, and equal the JAX engine's dense results."""
     words = _corpus(1200, seed=33)
     w = np.ones(len(words))
     w[::7] = 0.5
@@ -160,8 +163,9 @@ def test_weighted_index_takes_dense_route(monkeypatch):
     monkeypatch.setattr(pe, "CAND_MIN_TERMS", 100)
     queries = [x[:-1] + "x" for x in words[:12]]
     got = pe.search_batch(queries, 0.25, 10, mode="candidates")
-    assert pe.last_routing["variant"] == "dense"
+    assert pe.last_routing["variant"] == "bitmap_kernel"
     assert pe.last_routing["hstar"] is False
+    assert pe.last_routing["block_sel"] is False
     want = je.search_batch(queries, 0.25, 10, mode="dense")
     for q, g, wnt in zip(queries, got, want):
         assert _groups(g) == _groups(wnt), q

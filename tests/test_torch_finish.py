@@ -175,7 +175,8 @@ def test_front_end_matches_jax_scan(case):
     got = [x.numpy() for x in pc.candidates_bitmap_mxu(
         ph.device, bm_p, pt_p, xt_p,
         *[torch.from_numpy(np.ascontiguousarray(h[k])) for k in keys],
-        THRESHOLD, kb1=64, kb2=64, hs_fill=2, keep_hits=True, **base,
+        THRESHOLD, hstar=True, kb1=64, kb2=64, hs_fill=2, keep_hits=True,
+        **base,
     )]
     assert got[4].all()
     np.testing.assert_array_equal(got[0], want[0])

@@ -483,9 +483,10 @@ def test_sketch_escalation_ladder(monkeypatch):
 
 
 def test_sketch_gates_route_dense():
-    """Batches the reference sends elsewhere take the dense path: a table
-    that fits BITMAP_BUDGET (weighted), a tiny batch (the reference's runs
-    route), and queries over 127 gram windows (the unpacked sketch)."""
+    """Batches the reference sends elsewhere leave the sketch: a table that
+    fits BITMAP_BUDGET takes the bitmap route (weighted: no h*); a tiny
+    batch (the reference's runs route) and queries over 127 gram windows
+    (the unpacked sketch) take the dense path."""
     words, weights = _rows2d(600, seed=9)
     ph = pbuild(words, 2, weights, IndexConfig(), device="cpu")
     pe = _sketch_engine(PEngine(ph), ph)
@@ -493,8 +494,10 @@ def test_sketch_gates_route_dense():
     want = pe.search_batch(queries, 0.3, 10, mode="dense")
     pe.BITMAP_BUDGET = 6 << 30
     assert pe.search_batch(queries, 0.3, 10, mode="candidates") == want
-    assert pe.last_routing["variant"] == "dense"
+    assert pe.last_routing["variant"] == "bitmap_kernel"
+    assert pe.last_routing["hstar"] is False
     pe.BITMAP_BUDGET = 0
+    ph._bitmap_cache = None  # the table is cached per index, whatever the budget
     assert pe.search_batch(queries[:8], 0.3, 10, mode="candidates") == want[:8]
     assert pe.last_routing["variant"] == "dense"
     assert pe.search_batch(queries, 0.3, 10, mode="candidates") == want
