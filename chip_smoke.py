@@ -14,15 +14,21 @@ Drives the port's candidate paths on one CUDA card, through
   * the weighted 2-D index of ``bench.py`` (``index2d_1m_rows``: 1M rows of
     product name + gram-rich description, weights [1.0, 0.4]), whose packed
     bitmap is over budget, so it routes to the packed bucket sketch through
-    the hand-written K2 kernel;
+    the hand-written K2 kernel; on the same index, single queries and
+    batches of 8 through the sorted runs (``tiny_runs``: the postings
+    expansion K6) and 1-3 character queries through the brute tier (the
+    edit-distance DP K5 over the whole long tier);
   * the same 2-D layout at 500k rows, whose packed bitmap fits its budget:
     the weighted bitmap route, K2, ``block_hmax`` and the blockmax finish;
   * ``bench.py``'s ``wide_100k_g2`` (100k CJK/accented keys, gram size 2):
-    K2 and the dense-hits finish.
+    K2 and the dense-hits finish; and ``wide_100k_g3`` (gram size 3): the
+    sorted runs, K6 and K5;
+  * ``bench.py``'s ``dense_1m`` (1M product names): the gram-matrix route
+    (``torch._int_mm``) with the h* finish, batches and single queries.
 
 Phases, each printing one line with its seconds; any failure raises, so the
 script exits non-zero and prints no final ``ok`` line.  They run in the
-order 1-6, 11-12, 7-10, 13-14:
+order 1-3, 15, 4-6, 11-12, 7-10, 16, 18-19, 13-14, 17, 20:
 
   1. device: a CUDA card is required; prints nvidia-smi's name and power
      limit;
@@ -37,7 +43,7 @@ order 1-6, 11-12, 7-10, 13-14:
      K1 launches; then times 64 single queries;
   5. K1 on the real table: on the whole resident table with real queries'
      counts at B = 256 and at the engine's step, bit-identical to the plain
-     version; both timed with CUDA events;
+     version; both timed with CUDA events, beside the bound;
   6. exactness: 32 queries again through the dense path, requiring the
      same (score, key length) tie groups holding the same keys;
   7. K2 against its plain version on random tables (Gp 128 / 2816 / 8192,
@@ -47,7 +53,7 @@ order 1-6, 11-12, 7-10, 13-14:
      requires the sketch_packed route, K2 launches and no plain calls;
   9. K2 on the real sketch table with real queries' bucket counts at
      B = 256 and at the engine's step, bit-identical to the plain version;
-     both timed with CUDA events;
+     both timed with CUDA events, beside the bound;
   10. 2-D exactness: 32 of those queries again through the dense path, the
      same tie groups;
   11. the row gather against its plain version on random tables: row-major
@@ -56,10 +62,11 @@ order 1-6, 11-12, 7-10, 13-14:
      rows; torch.equal, both timed with CUDA events;
   12. gathered route on the 10M index: 64 single queries and 8 batches of 8;
      every pass the tiny-runs gate declines must route bitmap_gather with
-     h* and >= 32 gathered rows, with gather and K1 launches and no plain
-     calls; results equal, as tie groups, the default bitmap_kernel route's
-     and the dense path's; single-query p50/p90 on both routes; the gather
-     kernel timed on real rows;
+     h* and >= 32 gathered rows (the rest tiny_runs), with gather and K1
+     launches and no plain calls; results equal, as tie groups, the default
+     bitmap_kernel route's and the dense path's; single-query p50/p90 on
+     both routes; the gather kernel timed on real rows beside
+     ``index_select`` and the bound;
   13. weighted bitmap route: the 2-D layout at ``--rows2d-bitmap`` rows
      (500k), its packed table within BITMAP_BUDGET; one warm-up and three
      timed batches of 1,024 queries; route bitmap_kernel, no h*, block_sel,
@@ -67,10 +74,35 @@ order 1-6, 11-12, 7-10, 13-14:
      dense path; one batch timed fused K1 against K2 + block_hmax, and
      BITMAP_KB_LANES 0 against 65536, with equal results;
   14. wide_100k_g2: 256 queries; route bitmap_kernel, no h*, no block_sel,
-     K2 launches; 32 queries against the dense path.
+     K2 launches; 32 queries against the dense path;
+  15. K5 against its plain version on random cases: a 20k-term short tier
+     at B = 256, a 2M-term long tier at B = 1, wide int32 tokens, W = 200
+     at Qp 32 and 130, Qp 128 over W 16; qlen 0, 1 and Qp; bit-identical,
+     timed with CUDA events beside the bound (operations at the card's
+     INT32 rate), and every form of the kernel that holds the shapes timed
+     beside the one the wrapper picks;
+  16. K6 against its plain version on random (B, s_cap) indices into the
+     2-D index's gram_terms, out of range on both sides, sorted and
+     unsorted, int64 and int32, one and two tables; bit-identical, timed
+     per call and in device time beside ``torch.take`` on the clamped
+     indices and the bound;
+  17. wide_100k_g3: 256 queries; route runs, K5 and K6 launches, no plain
+     calls; 32 queries against the dense path; q/s, a traced batch, and K5
+     and K6 on the very operands a batch hands them (recorded) against
+     their plain versions, per call and device time, K5's forms;
+  18. tiny runs on the 2-D index: 64 single queries and 8 batches of 8 from
+     name and description rows; at least one pass tiny_runs, K6 launches,
+     no plain calls; results equal the dense path's; single-query p50/p90
+     on the route and on the dense path;
+  19. brute tier on the 2-D index: 16 queries of 1-3 characters; K5
+     launches, no plain calls; results equal the same queries recomputed
+     with the plain DP; K5 on the long tier at B = 16 and B = 1;
+  20. dense_1m: 1M product names; 512-query batches and 32 single queries,
+     each first pass routed matmul with h*; 32 queries against the dense
+     path; q/s and single p50/p90.
 
-The line before the last is a JSON object describing the kernels; the last
-line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object describing the six kernels; the
+last line is ``{"ok": true, "device": {...}}``.
 
 Usage:  python3 chip_smoke.py [--keys N] [--rows2d N] [--rows2d-bitmap N]
 """
@@ -78,6 +110,7 @@ Usage:  python3 chip_smoke.py [--keys N] [--rows2d N] [--rows2d-bitmap N]
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -95,8 +128,34 @@ N_QUERIES_2D = 1024  # the 2-D config's query count (bench.py)
 REPS = 3
 N_SINGLE = 64
 N_SMALL_BATCHES = 8  # batches of GATHER_BATCH queries on the gathered route
-N_WIDE = 100_000  # bench.py wide_100k_g2
+N_WIDE = 100_000  # bench.py wide_100k_g2 and wide_100k_g3
 N_QUERIES_WIDE = 256
+N_1M = 1_000_000  # bench.py dense_1m
+N_SINGLE_1M = 32
+N_BRUTE = 16
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
+# HBM bytes/s, int8 tensor-core ops/s
+PEAK_BYTES = 3.35e12
+PEAK_INT8 = 1979e12
+# 32-bit integer ops per SM per clock: the Hopper SM's 64 INT32 lanes
+# (NVIDIA H100 Tensor Core GPU Architecture whitepaper, the SM diagram);
+# the data sheet lists no integer rate outside the tensor cores
+INT32_LANES_PER_SM = 64
+
+
+@functools.lru_cache(maxsize=None)
+def _peak_int32() -> float:
+    """32-bit integer ops/s of card 0: its SM count x 64 INT32 lanes x its
+    highest SM clock as nvidia-smi reports it."""
+    import torch
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_LANES_PER_SM * mhz * 1e6
 
 
 def _phase(name: str, t0: float, **info) -> None:
@@ -150,10 +209,14 @@ def _random_case(gen, b: int, gp: int, ntiles: int, total: int, device):
 
 def _kernel_of(name: str):
     """'k1' / 'k2' for the two instantiations of csrc/bitmap_hits.cu's
-    kernel (demangled or mangled name), 'g' for csrc/gather_rows.cu's,
-    else None."""
+    kernel (demangled or mangled name), 'g' for csrc/gather_rows.cu's, 'k5'
+    for csrc/dp_match.cu's, 'k6' for csrc/gather_tables.cu's, else None."""
     if "gather_rows_kernel" in name:
         return "g"
+    if "dp_match_kernel" in name:
+        return "k5"
+    if "gather_tables_kernel" in name:
+        return "k6"
     if "bitmap_hits_kernel" not in name:
         return None
     return "k1" if ("<true>" in name or "ILb1E" in name) else "k2"
@@ -202,6 +265,8 @@ def _trace(run) -> dict:
     k1 = sum(v for k, v in by_name.items() if _kernel_of(k) == "k1")
     k2 = sum(v for k, v in by_name.items() if _kernel_of(k) == "k2")
     g = sum(v for k, v in by_name.items() if _kernel_of(k) == "g")
+    k5 = sum(v for k, v in by_name.items() if _kernel_of(k) == "k5")
+    k6 = sum(v for k, v in by_name.items() if _kernel_of(k) == "k6")
     return {
         "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy / 1e3,
@@ -209,6 +274,8 @@ def _trace(run) -> dict:
         "k1_ms": k1 / 1e3,
         "k2_ms": k2 / 1e3,
         "gather_ms": g / 1e3,
+        "k5_ms": k5 / 1e3,
+        "k6_ms": k6 / 1e3,
         "top_kernels_ms": {k: v / 1e3 for k, v in top},
         "top_ops_device_ms": {f"{k} x{n}": t / 1e3 for k, t, n in ops[:10]},
         "n_kernel_launches": len(spans),
@@ -280,19 +347,93 @@ def np_tile(slots, b: int):
 def _reset_counts() -> None:
     """Every kernel's launch and plain-call count to 0."""
     from stringsearchlib_tpu_torch.ops import bitmap_matmul as bmm
+    from stringsearchlib_tpu_torch.ops import dp_match as k5
+    from stringsearchlib_tpu_torch.ops import vgather as k6
 
     bmm.K1_LAUNCHES = bmm.K1_REF_CALLS = bmm.K2_LAUNCHES = bmm.K2_REF_CALLS = 0
     bmm.G_LAUNCHES = bmm.G_REF_CALLS = 0
+    k5.K5_LAUNCHES = k5.K5_REF_CALLS = k6.K6_LAUNCHES = k6.K6_REF_CALLS = 0
 
 
 def _counts() -> dict:
     from stringsearchlib_tpu_torch.ops import bitmap_matmul as bmm
+    from stringsearchlib_tpu_torch.ops import dp_match as k5
+    from stringsearchlib_tpu_torch.ops import vgather as k6
 
     return {
         "k1": bmm.K1_LAUNCHES, "k1_plain": bmm.K1_REF_CALLS,
         "k2": bmm.K2_LAUNCHES, "k2_plain": bmm.K2_REF_CALLS,
         "gather": bmm.G_LAUNCHES, "gather_plain": bmm.G_REF_CALLS,
+        "k5": k5.K5_LAUNCHES, "k5_plain": k5.K5_REF_CALLS,
+        "k6": k6.K6_LAUNCHES, "k6_plain": k6.K6_REF_CALLS,
     }
+
+
+def _bound(nbytes: float, ops: float = 0.0, peak_ops: float | None = None):
+    """The least time the card could take: the larger of ``nbytes`` over the
+    HBM rate and ``ops`` over ``peak_ops`` (ms, and which bounds it)."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / peak_ops * 1e3 if ops else 0.0
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _hits_bound(q, ntiles: int, bmax: bool):
+    """K1 / K2 on ``q`` (B, Gp) multiplicities over ``ntiles`` tiles: the
+    listed rows of the table read once, the multiplicities, the int8 hits
+    (and block maxima) written once; two int8 operations per listed
+    (query, row, term)."""
+    b = q.shape[0]
+    rows = int((q != 0).any(0).sum())
+    nbytes = (rows * ntiles * 512 + q.numel() * q.element_size()
+              + b * ntiles * 4096 + (b * ntiles * 32 if bmax else 0))
+    ops = 2 * int((q != 0).sum()) * ntiles * 4096
+    return _bound(nbytes, ops, PEAK_INT8)
+
+
+def _dp_bound(tokens, lengths, qtok, qlens):
+    """K5: tokens, lengths, queries read once and the (B, N) int32 counts
+    written once; five 32-bit integer operations per DP cell (two min, two
+    add, one compare) at the card's INT32 rate, over each pair's
+    min(qlen, Qp) x min(len, W) cells."""
+    w = tokens.shape[1]
+    cells = float(qlens.clamp(0, qtok.shape[1]).double().sum()) * float(
+        lengths.clamp(0, w).double().sum())
+    nbytes = (tokens.numel() * tokens.element_size() + 4 * lengths.numel()
+              + 4 * qtok.numel() + 4 * qlens.numel()
+              + 4 * qtok.shape[0] * tokens.shape[0])
+    return _bound(nbytes, 5 * cells, _peak_int32())
+
+
+def _gather_bound(idx, t_len: int, n_tables: int = 1):
+    """K6: the indices read once, each distinct in-range table word read
+    once per table, the (B, C) outputs written once per table."""
+    import torch
+
+    valid = idx[(idx >= 0) & (idx < t_len)]
+    distinct = int(torch.unique(valid).numel()) if valid.numel() else 0
+    nbytes = (idx.numel() * idx.element_size()
+              + n_tables * (4 * distinct + 4 * idx.numel()))
+    return _bound(nbytes)
+
+
+class _plain_dp:
+    """Every binding of ``dp_match`` in the port's search modules set to the
+    plain version for the ``with`` block: the same search recomputed
+    without K5."""
+
+    def __enter__(self):
+        from stringsearchlib_tpu_torch.ops import dp_match as k5
+        from stringsearchlib_tpu_torch.search import candidates, editdist, engine
+
+        self.mods = (candidates, editdist, engine)
+        self.saved = [m.dp_match for m in self.mods]
+        for m in self.mods:
+            m.dp_match = k5.dp_match_ref
+        return self
+
+    def __exit__(self, *exc):
+        for m, f in zip(self.mods, self.saved):
+            m.dp_match = f
 
 
 def _timed_batches(engine, queries, threshold, limit, reps=REPS):
@@ -429,17 +570,17 @@ def _gathered_route(engine, table, queries, threshold, limit, dev):
         tiny = (engine.host.n_terms >= engine.SKETCH_MIN_TERMS
                 and len(items) <= engine.RUNS_TINY_BATCH
                 and s_cap <= engine.RUNS_TINY_LANES)
-        key = ("tiny_" if tiny else "") + rt["variant"]
-        by_variant[key] = by_variant.get(key, 0) + 1
-        want_v = "bitmap_kernel" if tiny else "bitmap_gather"
-        if rt["variant"] != want_v or not rt.get("hstar"):
+        by_variant[rt["variant"]] = by_variant.get(rt["variant"], 0) + 1
+        want_v = "tiny_runs" if tiny else "bitmap_gather"
+        if rt["variant"] != want_v or not (tiny or rt.get("hstar")):
             raise AssertionError(f"pass of {len(items)} queries (tiny={tiny}) "
                                  f"routed {rt}")
         if not tiny and rt["gather_rows"] < 32:
             raise AssertionError(f"gathered pass with {rt['gather_rows']} rows")
     if not by_variant.get("bitmap_gather"):
         raise AssertionError(f"no pass took the gathered route: {by_variant}")
-    if counts["gather"] <= 0 or counts["k1"] <= 0 or counts["gather_plain"] or counts["k1_plain"]:
+    if (counts["gather"] <= 0 or counts["k1"] <= 0 or counts["gather_plain"]
+            or counts["k1_plain"] or counts["k5_plain"] or counts["k6_plain"]):
         raise AssertionError(f"gathered route counts {counts}")
     _, gather_ms = _single_ms(engine, singles, threshold, limit)
     engine.BITMAP_GATHER_TMAJ = False
@@ -470,6 +611,11 @@ def _gathered_route(engine, table, queries, threshold, limit, dev):
     if err or not torch.equal(kg, rg):
         raise AssertionError(f"gather differs on the real table's rows: {err}")
     g_ms = _cuda_ms(lambda: bmm.gather_rows(table, rows_d), 20)
+    rows_l = rows_d.long()
+    # each distinct listed row read once, the (padded) output written once
+    row_bytes = kg.numel() // rows_d.numel()
+    g_bound = _bound(int(torch.unique(rows_d).numel()) * row_bytes + kg.numel()
+                     + 4 * rows_d.numel())
     return {
         "passes_by_variant": by_variant,
         "gather_launches": counts["gather"],
@@ -487,6 +633,8 @@ def _gathered_route(engine, table, queries, threshold, limit, dev):
             "gb_per_s": 2 * kg.numel() / g_ms / 1e6,
             "device_ms": _device_ms(lambda: bmm.gather_rows(table, rows_d)),
             "plain_device_ms": _device_ms(lambda: bmm.gather_rows_ref(table, rows_d)),
+            "index_select_ms": _cuda_ms(lambda: table.index_select(1, rows_l), 20),
+            "bound_ms": g_bound[0], "bound_by": g_bound[1],
         },
         "max_abs_err": err,
     }
@@ -647,6 +795,459 @@ def _wide_g2_route(threshold, limit, dev):
     }
 
 
+# K5's random cases: (name, N terms, width W, B queries, Qp, wide tokens)
+K5_CASES = (
+    ("short_tier_b256", 20_000, 8, 256, 32, False),
+    ("long_tier_b1", 2_000_000, 32, 1, 32, False),
+    ("wide_int32_b64", 100_000, 16, 64, 16, True),
+    ("w200_qp32_b16", 20_000, 200, 16, 32, False),
+    ("w200_qp130_b4", 5_000, 200, 4, 130, False),
+    ("qp128_w16_b64", 20_000, 16, 64, 128, False),
+)
+
+
+def _k5_forms(args, want) -> dict:
+    """Every form of K5 that holds ``args``' shapes (the state along the
+    query or the term in registers, or the scratch column), each checked
+    bit for bit against ``want`` and timed with CUDA events; "picked" is
+    the form ``dp_match`` launches."""
+    import torch
+    from stringsearchlib_tpu_torch.ops import dp_match as k5
+
+    tokens, _, qtok, _ = args
+    qp, w = int(qtok.shape[1]), int(tokens.shape[1])
+    forms = {"picked": k5.pick_form(qp, w)}
+    for form in ("query", "term", "scratch"):
+        if form != "scratch" and (qp if form == "query" else w) > 64:
+            continue
+        got = k5.launch_form(*args, form)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K5's {form} form differs from its plain version")
+        forms[f"{form}_ms"] = _cuda_ms(lambda: k5.launch_form(*args, form), 5)
+    return forms
+
+
+def _k5_random(gen, dev):
+    """K5 against its plain version on random cases at the shapes the routes
+    give it: a 20k-term short tier at B = 256, a 2M-term long tier at B = 1,
+    wide int32 tokens, W = 200 with Qp 32 and with Qp 130 (past the
+    register forms), Qp 128 over W 16; qlen 0, 1 and Qp in every case, each
+    form of the kernel that holds the shapes.  Returns (max_abs_err, cases,
+    timing)."""
+    import torch
+    from stringsearchlib_tpu_torch.ops import dp_match as k5
+
+    err, timing = 0, {}
+    for name, n, w, b, qp, wide in K5_CASES:
+        lo = 0x4E00 if wide else ord("a")
+        lengths = torch.randint(0, w + 1, (n,), generator=gen, dtype=torch.int32)
+        lengths[:2] = torch.tensor([0, w])
+        tokens = torch.randint(lo, lo + 6, (n, w), generator=gen, dtype=torch.int32)
+        tokens[torch.arange(w)[None, :] >= lengths[:, None]] = 0
+        qlens = torch.randint(0, qp + 1, (b,), generator=gen, dtype=torch.int32)
+        qlens[: min(b, 3)] = torch.tensor([qp, 0, 1])[: min(b, 3)]
+        qtok = torch.randint(lo, lo + 6, (b, qp), generator=gen, dtype=torch.int32)
+        qtok[torch.arange(qp)[None, :] >= qlens[:, None]] = 0
+        if not wide:
+            tokens = tokens.to(torch.uint8)
+        args = [t.to(dev) for t in (tokens, lengths, qtok, qlens)]
+        got = k5.dp_match(*args)
+        want = k5.dp_match_ref(*args)
+        torch.cuda.synchronize()
+        e = int((got - want).abs().max())
+        err = max(err, e)
+        if e or not torch.equal(got, want):
+            raise AssertionError(f"K5 differs from its plain version: {name} max_abs_err={e}")
+        bound, by = _dp_bound(*args)
+        timing[name] = {
+            "n": n, "w": w, "b": b, "qp": qp, "wide": wide,
+            "ms": _cuda_ms(lambda: k5.dp_match(*args), 5),
+            "plain_ms": _cuda_ms(lambda: k5.dp_match_ref(*args), 1),
+            "bound_ms": bound, "bound_by": by,
+            "forms": _k5_forms(args, want),
+        }
+        del got, want, args
+        torch.cuda.empty_cache()
+    return err, len(K5_CASES), timing
+
+
+def _gather_case(idx, tables, fills, what: str) -> dict:
+    """K6 against its plain version on one case, bit for bit, and both timed
+    with CUDA events (per call, host work included) and from a trace
+    (device time) beside ``torch.take`` on the clamped indices (the nearest
+    library call: no fill) and the bound."""
+    import torch
+    from stringsearchlib_tpu_torch.ops import vgather as k6
+
+    got = k6.gather_tables(idx, tables, fills)
+    want = k6.gather_tables_ref(idx, tables, fills)
+    torch.cuda.synchronize()
+    err = 0  # over the outputs' 32-bit patterns
+    for g, w in zip(got, want):
+        gb, wb = g.view(torch.int32), w.view(torch.int32)
+        err = max(err, int((gb.long() - wb.long()).abs().max()))
+        if g.dtype != w.dtype or err or not torch.equal(gb, wb):
+            raise AssertionError(f"K6 differs from its plain version: {what} "
+                                 f"max_abs_err={err}")
+    del got, want
+    t_len = int(tables[0].shape[0])
+    idc = idx.clamp(0, t_len - 1).long()
+    bound, by = _gather_bound(idx, t_len, len(tables))
+    return {
+        "shape": list(idx.shape), "index_dtype": str(idx.dtype).replace("torch.", ""),
+        "tables": len(tables), "table_len": t_len, "max_abs_err": err,
+        "ms": _cuda_ms(lambda: k6.gather_tables(idx, tables, fills), 10),
+        "plain_ms": _cuda_ms(lambda: k6.gather_tables_ref(idx, tables, fills), 3),
+        "take_ms": _cuda_ms(lambda: torch.take(tables[0], idc), 10),
+        "device_ms": _device_ms(lambda: k6.gather_tables(idx, tables, fills)),
+        "plain_device_ms": _device_ms(lambda: k6.gather_tables_ref(idx, tables, fills), 5),
+        "take_device_ms": _device_ms(lambda: torch.take(tables[0], idc)),
+        "bound_ms": bound, "bound_by": by,
+    }
+
+
+def _k6_random(gram_terms, dev):
+    """K6 against its plain version on random (B, s_cap) indices into a
+    real ``gram_terms`` (the 2-D index's), out of range on both sides:
+    sorted int64 rows as the postings expansions pass them, unsorted ones,
+    and int32 indices over two tables (int32 and float32).  Returns
+    (cases, timing)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(66)
+    t_len = int(gram_terms.shape[0])
+    ftab = torch.randn(t_len, generator=gen, device=dev)
+    timing = {}
+    for name, b, c, ordered, dt, two in (
+        ("b256_c65536_sorted_int64", 256, 1 << 16, True, torch.int64, False),
+        ("b8_c1048576_unsorted_int64", 8, 1 << 20, False, torch.int64, False),
+        ("b64_c65536_int32_two_tables", 64, 1 << 16, False, torch.int32, True),
+    ):
+        idx = torch.randint(-1000, t_len + 1000, (b, c), generator=gen, device=dev,
+                            dtype=torch.int64)
+        if ordered:
+            idx = torch.sort(idx, dim=1).values
+        idx = idx.to(dt).contiguous()
+        tables = [gram_terms, ftab] if two else [gram_terms]
+        fills = [t_len, -1.5] if two else [t_len]
+        timing[name] = _gather_case(idx, tables, fills, name)
+        del idx
+    return len(timing), timing
+
+
+def _recorded_calls(mod, name: str, run) -> list:
+    """``run()`` with ``mod.<name>`` spied on: the arguments of every call
+    it got, top-level tensors cloned (the engine may reuse its buffers)."""
+    import torch
+
+    calls, orig = [], getattr(mod, name)
+
+    def spy(*a):
+        calls.append(tuple(x.clone() if torch.is_tensor(x) else x for x in a))
+        return orig(*a)
+
+    setattr(mod, name, spy)
+    try:
+        run()
+    finally:
+        setattr(mod, name, orig)
+    return calls
+
+
+def _route_kernels(engine, run) -> dict:
+    """K5 and K6 at a runs route's real shapes: the operands that the first
+    candidate pass of ``run()`` hands to the short tier's ``dp_match`` and
+    to the postings expansion's ``gather_tables``, recorded as they are
+    passed; each kernel against its plain version, bit for bit, with
+    CUDA-event and profiler times, the bound, and K5's other forms."""
+    import torch
+    from stringsearchlib_tpu_torch.ops import dp_match as k5
+    from stringsearchlib_tpu_torch.search import candidates
+
+    k6_calls = []
+    dp_calls = _recorded_calls(candidates, "dp_match", lambda: k6_calls.extend(
+        _recorded_calls(candidates, "gather_tables", run)))
+    if not dp_calls or not k6_calls:
+        raise AssertionError(f"the route made {len(dp_calls)} short-tier DP and "
+                             f"{len(k6_calls)} expansion calls")
+    dp_args = dp_calls[0]
+    kd, pd = k5.dp_match(*dp_args), k5.dp_match_ref(*dp_args)
+    torch.cuda.synchronize()
+    if not torch.equal(kd, pd):
+        raise AssertionError("K5 differs from its plain version on the route's shapes")
+    bound, by = _dp_bound(*dp_args)
+    tokens, qtok = dp_args[0], dp_args[2]
+    k5_info = {
+        "calls_per_batch": len(dp_calls),
+        "shape": [int(qtok.shape[0]), int(tokens.shape[0]), int(tokens.shape[1])],
+        "qp": int(qtok.shape[1]), "token_dtype": str(tokens.dtype).replace("torch.", ""),
+        "ms": _cuda_ms(lambda: k5.dp_match(*dp_args), 10),
+        "plain_ms": _cuda_ms(lambda: k5.dp_match_ref(*dp_args), 3),
+        "device_ms": _device_ms(lambda: k5.dp_match(*dp_args)),
+        "plain_device_ms": _device_ms(lambda: k5.dp_match_ref(*dp_args), 5),
+        "bound_ms": bound, "bound_by": by,
+        "forms": _k5_forms(dp_args, pd),
+    }
+    idx, tables, fills = k6_calls[0]
+    k6_info = _gather_case(idx, tables, fills, "the route's expansion")
+    k6_info["calls_per_batch"] = len(k6_calls)
+    return {"k5": k5_info, "k6": k6_info}
+
+
+def _wide_g3_route(threshold, limit, dev):
+    """bench.py's wide_100k_g3: 100k wide keys at gram size 3, 256 queries.
+    The packed bitmap is over BITMAP_BUDGET and the index under
+    SKETCH_MIN_TERMS, so the batch takes the sorted runs: K6 expands the
+    postings, K5 scores the short tier."""
+    import torch
+
+    import bench
+    from stringsearchlib_tpu_torch.config import IndexConfig
+    from stringsearchlib_tpu_torch.index import build as buildmod
+    from stringsearchlib_tpu_torch.search.engine import SearchEngine
+
+    words = bench._wide_names(N_WIDE)
+    t1 = time.perf_counter()
+    host = buildmod.build_index(
+        words, 1, None, IndexConfig(wide=True, gram_size=3), device=dev
+    )
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    engine = SearchEngine(host)
+    rng = random.Random(7)
+    queries = [bench._mutate(rng, rng.choice(words)) for _ in range(N_QUERIES_WIDE)]
+    _reset_counts()
+    (results, warm_s, rep_s), passes = _with_passes(
+        engine, lambda: _timed_batches(engine, queries, threshold, limit)
+    )
+    counts = _counts()
+    routing = passes[0][2]
+    if routing.get("variant") != "runs":
+        raise AssertionError(f"wide_100k_g3 did not take the sorted runs: {routing}")
+    if counts["k5"] <= 0 or counts["k6"] <= 0 or counts["k5_plain"] or counts["k6_plain"]:
+        raise AssertionError(f"wide_100k_g3 counts {counts}")
+    _check_results(results, queries, threshold, limit)
+    _check_exact(engine, queries[:32], results[:32], threshold, limit)
+    med = sorted(rep_s)[len(rep_s) // 2]
+    return {
+        "n_keys": len(words), "n_terms": host.n_terms, "n_grams": host.n_grams,
+        "n_short": host.device.n_short, "build_s": build_s,
+        "bitmap_fits": host.bitmap_fits(engine.BITMAP_BUDGET),
+        "qps_median": N_QUERIES_WIDE / med, "rep_s": rep_s, "warmup_s": warm_s,
+        "routing_first_pass": routing, "routing_last": dict(engine.last_routing),
+        "counts": counts,
+        "mean_results": sum(len(k) for k, _ in results) / len(results),
+        "traced_batch": _trace(lambda: engine.search_batch(
+            queries, threshold, limit, batch_bucket=512)),
+        "route_kernels": _route_kernels(engine, lambda: engine.search_batch(
+            queries, threshold, limit, batch_bucket=512)),
+    }
+
+
+def _spied(engine, queries, run):
+    """``run(q)`` for each query with the candidate passes recorded: (the
+    results, each query's first-pass routing, {"variant": "none"} where no
+    candidate pass ran)."""
+    out, variants = [], []
+    orig = engine._cand_pass
+    seen = []
+
+    def spy(items, *a):
+        res = orig(items, *a)
+        seen.append(dict(engine.last_routing))
+        return res
+
+    engine._cand_pass = spy
+    try:
+        for q in queries:
+            n0 = len(seen)
+            out.append(run(q))
+            variants.append(seen[n0] if len(seen) > n0 else {"variant": "none"})
+    finally:
+        del engine._cand_pass
+    return out, variants
+
+
+def _tiny_runs_2d(engine, words, threshold, limit):
+    """64 single queries and 8 batches of 8 on the 1M-row 2-D index, half
+    from name rows and half from description rows: passes whose posting
+    mass fits RUNS_TINY_LANES take tiny_runs (no table streamed), the rest
+    the sketch.  Results equal the dense path's; single-query times on the
+    route against the dense path (which the port took before the runs
+    route existed)."""
+    import torch
+
+    import bench
+
+    rng = random.Random(11)
+    half = len(words) // 2
+
+    def draw(kind, n):
+        return [bench._mutate(rng, words[2 * rng.randrange(half) + kind]) for _ in range(n)]
+
+    singles = [q for pair in zip(draw(0, 32), draw(1, 32)) for q in pair]
+    batches = [draw(0, 4) + draw(1, 4) for _ in range(N_SMALL_BATCHES)]
+    engine.search(singles[0], threshold, limit)  # warm-up
+    _reset_counts()
+    got_single, r_single = _spied(
+        engine, singles, lambda q: engine.search(q, threshold, limit))
+    got_batches, r_batches = _spied(
+        engine, batches, lambda b: engine.search_batch(b, threshold, limit))
+    v_single = [rt["variant"] for rt in r_single]
+    v_batches = [rt["variant"] for rt in r_batches]
+    torch.cuda.synchronize()
+    counts = _counts()
+    if "tiny_runs" not in v_single + v_batches:
+        raise AssertionError(f"no pass took tiny_runs: {v_single} {v_batches}")
+    if counts["k6"] <= 0 or counts["k6_plain"] or counts["k5_plain"] or counts["k2_plain"]:
+        raise AssertionError(f"tiny_runs_2d counts {counts}")
+    flat = [r for b in got_batches for r in b]
+    allq = singles + [q for b in batches for q in b]
+    dense = engine.search_batch(allq, threshold, limit, batch_bucket=512, mode="dense")
+    _same_groups(got_single + flat, dense, "tiny_runs_2d vs dense")
+    _check_results(got_single + flat, allq, threshold * 0.4 * (1 - 1e-6), limit)
+    _, route_ms = _single_ms(engine, singles, threshold, limit)
+    dense_ms = []
+    for q in singles:
+        t1 = time.perf_counter()
+        engine.search_batch([q], threshold, limit, mode="dense")
+        dense_ms.append((time.perf_counter() - t1) * 1e3)
+    dense_ms.sort()
+    tally = {}
+    for kind, vs in (("name_singles", v_single[0::2]), ("desc_singles", v_single[1::2]),
+                     ("batches_of_8", v_batches)):
+        tally[kind] = {v: vs.count(v) for v in sorted(set(vs))}
+    return {
+        "first_pass_variants": tally, "counts": counts,
+        "single_query_ms": {
+            "n": len(singles),
+            "route": {"p50": _pct(route_ms, 0.5), "p90": _pct(route_ms, 0.9)},
+            "dense": {"p50": _pct(dense_ms, 0.5), "p90": _pct(dense_ms, 0.9)},
+        },
+        "traced_single_desc": _trace(lambda: engine.search(singles[1], threshold, limit)),
+    }
+
+
+def _brute_2d(engine, words, threshold, limit, dev):
+    """16 queries of 1-3 characters on the 1M-row 2-D index: the brute tier,
+    K5 over the whole 2M-term long tier.  Results equal the same queries
+    recomputed with the plain DP; K5 timed at B = 16 and B = 1 on the long
+    tier against the plain version at B = 1."""
+    import torch
+    from stringsearchlib_tpu_torch.ops import dp_match as k5
+
+    rng = random.Random(13)
+    queries = []
+    while len(queries) < N_BRUTE:
+        w = words[rng.randrange(len(words))]
+        k = 1 + len(queries) % 3
+        j = rng.randrange(max(len(w) - k, 1))
+        q = w[j : j + k]
+        if engine._normalize_query(q)[1] == k:
+            queries.append(q)
+    engine.search_batch(queries[:2], threshold, limit)  # warm-up
+    _reset_counts()
+    t1 = time.perf_counter()
+    got = engine.search_batch(queries, threshold, limit, batch_bucket=512)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t1) * 1e3
+    counts = _counts()
+    if counts["k5"] <= 0 or counts["k5_plain"]:
+        raise AssertionError(f"brute_2d counts {counts}")
+    with _plain_dp():
+        want = [engine.search_batch([q], threshold, limit)[0] for q in queries]
+    _same_groups(got, want, "brute tier: K5 vs the plain DP")
+    _check_results(got, queries, threshold * 0.4 * (1 - 1e-6), limit)
+    di = engine.host.device
+    qtok = torch.zeros((N_BRUTE, 8), dtype=torch.int32)
+    qlens = torch.zeros(N_BRUTE, dtype=torch.int32)
+    for i, q in enumerate(queries):
+        qnorm, qlen = engine._normalize_query(q)
+        qtok[i, :qlen] = torch.from_numpy(qnorm[:qlen].astype("int32"))
+        qlens[i] = qlen
+    qtok, qlens = qtok.to(dev), qlens.to(dev)
+    long_args = (di.long_tokens, di.long_lengths)
+    k16 = k5.dp_match(*long_args, qtok, qlens)
+    one = (qtok[:1], qlens[:1])
+    k1_, p1 = k5.dp_match(*long_args, *one), k5.dp_match_ref(*long_args, *one)
+    torch.cuda.synchronize()
+    if not torch.equal(k1_, p1) or not torch.equal(k16[:1], p1):
+        raise AssertionError("K5 differs from its plain version on the long tier")
+    b16 = _dp_bound(*long_args, qtok, qlens)
+    b1 = _dp_bound(*long_args, *one)
+    return {
+        "queries": queries, "counts": counts, "batch_ms": batch_ms,
+        "long_tier_shape": list(di.long_tokens.shape),
+        "mean_results": sum(len(k) for k, _ in got) / len(got),
+        "k5_b16": {"ms": _cuda_ms(lambda: k5.dp_match(*long_args, qtok, qlens), 5),
+                   "bound_ms": b16[0], "bound_by": b16[1]},
+        "k5_b1": {"ms": _cuda_ms(lambda: k5.dp_match(*long_args, *one), 10),
+                  "plain_ms": _cuda_ms(lambda: k5.dp_match_ref(*long_args, *one), 2),
+                  "bound_ms": b1[0], "bound_by": b1[1]},
+    }
+
+
+def _matmul_1m(threshold, limit, dev):
+    """bench.py's dense_1m: 1M product names, whose dense (G, Tl) incidence
+    fits GM_BUDGET: 512-query batches and 32 single queries take the
+    gram-matrix route with the h* finish (torch._int_mm, as the reference
+    leaves its product to XLA)."""
+    import torch
+
+    import bench
+    from stringsearchlib_tpu_torch.config import IndexConfig
+    from stringsearchlib_tpu_torch.index import build as buildmod
+    from stringsearchlib_tpu_torch.search.engine import SearchEngine
+
+    words = bench._product_names(N_1M)
+    t1 = time.perf_counter()
+    host = buildmod.build_index(words, 1, None, IndexConfig(), device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    engine = SearchEngine(host)
+    t1 = time.perf_counter()
+    gm = host.gram_matrix(engine.GM_BUDGET)
+    torch.cuda.synchronize()
+    gm_s = time.perf_counter() - t1
+    if gm is None:
+        raise AssertionError("the 1M-key gram matrix is over GM_BUDGET")
+    rng = random.Random(7)
+    queries = [bench._mutate(rng, rng.choice(words)) for _ in range(N_QUERIES)]
+    _reset_counts()
+    (results, warm_s, rep_s), passes = _with_passes(
+        engine, lambda: _timed_batches(engine, queries, threshold, limit)
+    )
+    singles = queries[:N_SINGLE_1M]
+    got_single, s_routing = _spied(
+        engine, singles, lambda q: engine.search(q, threshold, limit))
+    counts = _counts()
+    for rt in [passes[0][2]] + s_routing:
+        if rt.get("variant") != "matmul" or not rt.get("hstar"):
+            raise AssertionError(f"a dense_1m first pass routed {rt}")
+    if any(counts[k] for k in counts if k.endswith("_plain")):
+        raise AssertionError(f"matmul_1m counts {counts}")
+    _check_results(results, queries, threshold, limit)
+    _check_exact(engine, queries[:32], results[:32], threshold, limit)
+    _same_groups(got_single, results[:N_SINGLE_1M], "matmul singles vs batch")
+    _, single_ms = _single_ms(engine, singles, threshold, limit)
+    med = sorted(rep_s)[len(rep_s) // 2]
+    info = {
+        "n_keys": len(words), "n_terms": host.n_terms, "n_grams": host.n_grams,
+        "build_s": build_s, "gram_matrix_s": gm_s, "gram_matrix_shape": list(gm.shape),
+        "qps_median": N_QUERIES / med, "rep_s": rep_s, "warmup_s": warm_s,
+        "routing_first_pass": passes[0][2], "routing_single": s_routing[0],
+        "counts": counts,
+        "single_query_ms": {"n": len(singles), "p50": _pct(single_ms, 0.5),
+                            "p90": _pct(single_ms, 0.9)},
+        "mean_results": sum(len(k) for k, _ in results) / len(results),
+        "traced_batch": _trace(lambda: engine.search_batch(
+            queries, threshold, limit, batch_bucket=512)),
+    }
+    del engine, host, gm
+    return info
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--keys", type=int, default=10_000_000)
@@ -687,14 +1288,15 @@ def main() -> None:
     from stringsearchlib_tpu_torch.index import build as buildmod
     from stringsearchlib_tpu_torch.index import native as nativelib
     from stringsearchlib_tpu_torch.ops import bitmap_matmul as bmm
+    from stringsearchlib_tpu_torch.ops import kernels
     from stringsearchlib_tpu_torch.ops.bitmap_matmul import g_padding
     from stringsearchlib_tpu_torch.search.candidates import query_counts
     from stringsearchlib_tpu_torch.search.engine import SearchEngine
     from stringsearchlib_tpu_torch.search.sketch import bucket_of
 
-    sos = bmm.build_kernels()
+    sos = kernels.build_kernels()
     for name in sos:
-        bmm._lib(name)
+        kernels.lib(name)
     native = nativelib.get_native() is not None
     _phase("build", t0, kernel_sos=",".join(os.path.relpath(p, _ROOT) for p in sos.values()),
            native_builder=native)
@@ -723,6 +1325,12 @@ def main() -> None:
                         f"sum={total} max_abs_err={err}"
                     )
     _phase("k1_random", t0, cases=n_cases, max_abs_err=max_err)
+
+    # -- 15. K5 vs plain, random cases ---------------------------------------
+    t0 = time.perf_counter()
+    k5_err, k5_cases, k5_timing = _k5_random(gen, dev)
+    print(json.dumps({"k5_random_timing": k5_timing, "card": smi}), flush=True)
+    _phase("k5_random", t0, cases=k5_cases, max_abs_err=k5_err)
 
     # -- 4. main path -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -757,8 +1365,7 @@ def main() -> None:
     queries = [bench._mutate(rng, rng.choice(words)) for _ in range(N_QUERIES)]
     threshold, limit = 0.3, 100
     torch.cuda.reset_peak_memory_stats()
-    bmm.K1_LAUNCHES = 0
-    bmm.K1_REF_CALLS = 0
+    _reset_counts()
     t1 = time.perf_counter()
     results = engine.search_batch(queries, threshold, limit, batch_bucket=512)
     torch.cuda.synchronize()
@@ -825,8 +1432,9 @@ def main() -> None:
         k_ms = _cuda_ms(lambda: bmm.bitmap_hits_bmax(q, table), 5)
         p_ms = _cuda_ms(lambda: bmm.bitmap_hits_bmax_ref(q, table, chunk_tiles=16), 1)
         hbytes = b * table.shape[0] * bmm.TILE_LANES
+        bound = _hits_bound(q, int(table.shape[0]), bmax=True)
         timing[b] = {
-            "k1_ms": k_ms, "plain_ms": p_ms,
+            "k1_ms": k_ms, "plain_ms": p_ms, "bound_ms": bound[0], "bound_by": bound[1],
             "table_gb_per_s": table.numel() / k_ms / 1e6,
             "hits_gb_per_s": hbytes / k_ms / 1e6,
         }
@@ -975,8 +1583,9 @@ def main() -> None:
         torch.cuda.empty_cache()
         k_ms = _cuda_ms(lambda: bmm.bitmap_hits(q, inc), 5)
         p_ms = _cuda_ms(lambda: bmm.bitmap_hits_ref(q, inc), 1)
+        bound = _hits_bound(q, int(inc.shape[0]), bmax=False)
         k2_timing[b] = {
-            "k2_ms": k_ms, "plain_ms": p_ms,
+            "k2_ms": k_ms, "plain_ms": p_ms, "bound_ms": bound[0], "bound_by": bound[1],
             "hits_gb_per_s": b * tg.shape[0] / k_ms / 1e6,
             "max_bucket_mult": int(q.max()),
         }
@@ -988,7 +1597,29 @@ def main() -> None:
     t0 = time.perf_counter()
     _check_exact(engine2, queries2[:32], results2[:32], threshold, limit)
     _phase("exactness_2d", t0, queries=32)
-    del engine2, host2, sk, inc, tg, q, results2
+    del sk, inc, tg, q, results2
+    torch.cuda.empty_cache()
+
+    # -- 16. K6 vs plain, random indices into the 2-D index's postings -------
+    t0 = time.perf_counter()
+    k6_cases, k6_timing = _k6_random(host2.device.gram_terms, dev)
+    print(json.dumps({"k6_random_timing": k6_timing, "card": smi}), flush=True)
+    k6_err = max(c["max_abs_err"] for c in k6_timing.values())
+    _phase("k6_random", t0, cases=k6_cases, max_abs_err=k6_err)
+
+    # -- 18. tiny runs on the 2-D index ------------------------------------------
+    t0 = time.perf_counter()
+    tiny2d = _tiny_runs_2d(engine2, words2, threshold, limit)
+    print(json.dumps({"tiny_runs_2d": tiny2d, "card": smi}), flush=True)
+    _phase("tiny_runs_2d", t0, passes=tiny2d["first_pass_variants"],
+           k6_launches=tiny2d["counts"]["k6"])
+
+    # -- 19. the brute tier on the 2-D index --------------------------------------
+    t0 = time.perf_counter()
+    brute = _brute_2d(engine2, words2, threshold, limit, dev)
+    print(json.dumps({"brute_2d": brute, "card": smi}), flush=True)
+    _phase("brute_2d", t0, k5_launches=brute["counts"]["k5"])
+    del engine2, host2, words2
     torch.cuda.empty_cache()
 
     # -- 13. the weighted bitmap route (2-D layout, table within budget) -----
@@ -1005,9 +1636,28 @@ def main() -> None:
     print(json.dumps({"wide_100k_g2": wide, "card": smi}), flush=True)
     _phase("wide_g2", t0, qps=round(wide["qps_median"], 2),
            k2_launches=wide["k2_launches"])
+    torch.cuda.empty_cache()
+
+    # -- 17. wide_100k_g3: the sorted runs -------------------------------------------
+    t0 = time.perf_counter()
+    wide3 = _wide_g3_route(threshold, limit, dev)
+    print(json.dumps({"wide_100k_g3": wide3, "card": smi}), flush=True)
+    _phase("wide_g3", t0, qps=round(wide3["qps_median"], 2),
+           k5_launches=wide3["counts"]["k5"], k6_launches=wide3["counts"]["k6"])
+    torch.cuda.empty_cache()
+
+    # -- 20. dense_1m: the gram-matrix route -------------------------------------
+    t0 = time.perf_counter()
+    mm = _matmul_1m(threshold, limit, dev)
+    print(json.dumps({"matmul_1m": mm, "card": smi}), flush=True)
+    _phase("matmul_1m", t0, qps=round(mm["qps_median"], 2),
+           single_p50=round(mm["single_query_ms"]["p50"], 3))
 
     src = "stringsearchlib_tpu_torch/csrc/bitmap_hits.cu"
     gsrc = "stringsearchlib_tpu_torch/csrc/gather_rows.cu"
+    g_real = gathered["gather_real_rows"]
+    k5_real = wide3["route_kernels"]["k5"]
+    k6_real = wide3["route_kernels"]["k6"]
     print(json.dumps({"kernels": [{
         "name": "bitmap_hits_bmax",
         "route": "cuda",
@@ -1017,6 +1667,9 @@ def main() -> None:
         "max_abs_err": max(max_err, real_err),
         "ms": timing[256]["k1_ms"],
         "plain_ms": timing[256]["plain_ms"],
+        "bound_ms": timing[256]["bound_ms"],
+        "bound_by": timing[256]["bound_by"],
+        "library_ms": None,
     }, {
         "name": "bitmap_hits",
         "route": "cuda",
@@ -1026,6 +1679,9 @@ def main() -> None:
         "max_abs_err": max(k2_err, k2_real_err),
         "ms": k2_timing[256]["k2_ms"],
         "plain_ms": k2_timing[256]["plain_ms"],
+        "bound_ms": k2_timing[256]["bound_ms"],
+        "bound_by": k2_timing[256]["bound_by"],
+        "library_ms": None,
     }] + [{
         "name": name,
         "route": "cuda",
@@ -1033,10 +1689,39 @@ def main() -> None:
         "replaces": f"stringsearchlib_tpu/ops/bitmap_matmul.py:{line}",
         "launches": gathered["gather_launches"],
         "max_abs_err": g_err,
-        "ms": gathered["gather_real_rows"]["ms"],
-        "plain_ms": gathered["gather_real_rows"]["plain_ms"],
-    } for name, line in (("gather_rows_dma", 465), ("gather_rows_pallas", 423))]}),
-        flush=True)
+        "ms": g_real["ms"],
+        "device_ms": g_real["device_ms"],
+        "plain_ms": g_real["plain_ms"],
+        "bound_ms": g_real["bound_ms"],
+        "bound_by": g_real["bound_by"],
+        "library_ms": g_real["index_select_ms"],
+    } for name, line in (("gather_rows_dma", 465), ("gather_rows_pallas", 423))] + [{
+        "name": "dp_match",
+        "route": "cuda",
+        "source": "stringsearchlib_tpu_torch/csrc/dp_match.cu",
+        "replaces": "tools/experimental/dp_pallas.py:86",
+        "launches": wide3["counts"]["k5"],
+        "max_abs_err": k5_err,
+        "ms": k5_real["ms"],
+        "device_ms": k5_real["device_ms"],
+        "plain_ms": k5_real["plain_ms"],
+        "bound_ms": k5_real["bound_ms"],
+        "bound_by": k5_real["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "gather_tables",
+        "route": "cuda",
+        "source": "stringsearchlib_tpu_torch/csrc/gather_tables.cu",
+        "replaces": "tools/experimental/vgather.py:65",
+        "launches": wide3["counts"]["k6"],
+        "max_abs_err": max(k6_err, k6_real["max_abs_err"]),
+        "ms": k6_real["ms"],
+        "device_ms": k6_real["device_ms"],
+        "plain_ms": k6_real["plain_ms"],
+        "bound_ms": k6_real["bound_ms"],
+        "bound_by": k6_real["bound_by"],
+        "library_ms": None,
+    }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count,
     }}), flush=True)

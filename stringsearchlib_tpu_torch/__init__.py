@@ -6,10 +6,18 @@ reference's Pallas kernels rewritten by hand for NVIDIA Hopper
 (``csrc/``).  This package imports torch and numpy, never jax.
 
 Ported so far: the index build (native C++ builder, numpy builder, device
-postings, the bit-packed incidence), the batch search's main path (K1
-``bitmap_hits_bmax`` + the integer h* finish + the selection-only retry),
-the dense path, wildcard and brute-force-short queries, and the
-``StringSearchIndex`` object API.  ROADMAP.md lists what is still to port.
+postings, the bit-packed incidence, the packed bucket sketch, the dense
+gram matrix), the batch search's candidate routes in the reference's gate
+order - the gram-matrix product (``matmul``), the sorted runs for tiny
+batches and as the fallback (``tiny_runs``, ``runs``), the bitmap routes
+(K1/K2, the gathered-row route with the row gather K3/K4) and the packed
+sketch (K2) - with their finishes, the dense path, wildcard and
+brute-force-short queries, and the ``StringSearchIndex`` object API.  The
+edit-distance DP (K5) and the postings expansion (K6) run as CUDA kernels
+on every route that needs them.  ROADMAP.md lists what is still to port.
+
+Every entry point runs on the CUDA card unless the caller asks for the CPU
+(``device="cpu"``); without a card and without that argument it raises.
 """
 
 from __future__ import annotations
@@ -23,18 +31,11 @@ _os.environ.setdefault("NUMPY_MADVISE_HUGEPAGE", "0")
 
 from typing import Optional, Sequence
 
-import torch
-
 from .config import DEFAULT_VALID_CHARS, IndexConfig
-from .index.build import HostIndex, build_index
+from .index.build import HostIndex, build_index, default_device
 from .search.engine import SearchEngine
 
 __version__ = "0.1.0"
-
-
-def default_device() -> torch.device:
-    """The first CUDA device when one is present, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
 class StringSearchIndex:
@@ -52,8 +53,7 @@ class StringSearchIndex:
     ):
         cfg = IndexConfig(gram_size=gram_size, wide=wide)
         self.host: HostIndex = build_index(
-            words, row_size, weights, cfg, valid_chars,
-            device=default_device() if device is None else device,
+            words, row_size, weights, cfg, valid_chars, device=device,
         )
         self.engine = SearchEngine(self.host)
 

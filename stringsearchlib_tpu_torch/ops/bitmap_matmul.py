@@ -15,7 +15,7 @@ the gram axis of either layout) launches ``csrc/gather_rows.cu``, which
 serves both of the reference's TPU gathers: ``gather_rows_dma`` (K3) and
 ``gather_rows_pallas`` (K4) keep their names, row-major contracts and
 asserts.  Each source is built with nvcc for sm_90a into ``build/kernels/``
-at first use (one nvcc per source, started together) and bound with ctypes.
+at first use and bound with ctypes (ops.kernels).
 On a CPU tensor each wrapper runs its plain PyTorch version
 (``bitmap_hits_bmax_ref``, ``bitmap_hits_ref``, ``gather_rows_ref``).
 Nothing else chooses between the two: a CUDA tensor launches the kernel or
@@ -29,13 +29,9 @@ query's counts in integer registers for any Gp multiple of 32, so only the
 
 from __future__ import annotations
 
-import ctypes
-import os
-import shutil
-import subprocess
-import threading
-
 import torch
+
+from .kernels import lib as _lib
 
 BLKB = 512
 TILE_LANES = 8 * BLKB
@@ -62,12 +58,6 @@ G_LAUNCHES = 0
 G_REF_CALLS = 0
 # bytes of the float32 operand the plain versions unpack at a time
 _PLAIN_CHUNK_BYTES = 1 << 30
-
-_ROOT = os.path.join(os.path.dirname(__file__), "..", "..")
-_CSRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "csrc"))
-_OUT_DIR = os.path.join(_ROOT, "build", "kernels")
-_LIBS: dict = {}
-_LIB_LOCK = threading.Lock()
 
 
 def plane_coords(term):
@@ -96,72 +86,6 @@ def from_tile_major(planes3):
     """(ntiles, Gp, BLKB) tile-major -> row-major (Gp, NB)."""
     nt, gp, blkb = planes3.shape
     return planes3.permute(1, 0, 2).reshape(gp, nt * blkb)
-
-
-# every kernel source csrc/<name>.cu: its entries' ctypes argument types
-_ARGTYPES = {
-    "bitmap_hits": {
-        "bitmap_hits_bmax_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-        + [ctypes.c_void_p],
-        "bitmap_hits_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-        + [ctypes.c_void_p],
-    },
-    "gather_rows": {
-        "gather_rows_launch": [ctypes.c_void_p] * 3
-        + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-    },
-}
-
-
-def build_kernels() -> dict:
-    """Compile every ``csrc/<name>.cu`` whose ``build/kernels/lib<name>.so``
-    is missing or older than its source, for sm_90a, one nvcc process per
-    source, all started together.  Returns {name: library path}.  Raises
-    when nvcc is absent or a compile fails."""
-    os.makedirs(_OUT_DIR, exist_ok=True)
-    out, jobs = {}, []
-    for name in _ARGTYPES:
-        src = os.path.join(_CSRC, f"{name}.cu")
-        so = os.path.abspath(os.path.join(_OUT_DIR, f"lib{name}.so"))
-        out[name] = so
-        if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
-            continue
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        if not os.path.exists(nvcc):
-            raise RuntimeError(f"nvcc not found: {name}.cu cannot be built")
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [
-            nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, src,
-        ]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
-        )
-        jobs.append((name, tmp, so, proc))
-    failed = []
-    for name, tmp, so, proc in jobs:
-        stdout, stderr = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu:\n{stdout}\n{stderr}")
-        else:
-            os.replace(tmp, so)
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return out
-
-
-def _lib(name: str = "bitmap_hits"):
-    """The loaded library of ``csrc/<name>.cu`` (building every kernel
-    source at the first call), its entries' argument types set."""
-    with _LIB_LOCK:
-        if not _LIBS:
-            for n, so in build_kernels().items():
-                lib = ctypes.CDLL(so)
-                for fn, argtypes in _ARGTYPES[n].items():
-                    getattr(lib, fn).argtypes = argtypes
-                    getattr(lib, fn).restype = ctypes.c_int
-                _LIBS[n] = lib
-    return _LIBS[name]
 
 
 def _compact_qcnt(qcnt):
@@ -222,7 +146,7 @@ def bitmap_hits_bmax(qcnt, planes):
     if b == 0 or ntiles == 0:
         return hits, bmax
     rows, mults = _cuda_operands(qcnt, planes)
-    lib = _lib()
+    lib = _lib("bitmap_hits")
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
         err = lib.bitmap_hits_bmax_launch(
@@ -255,7 +179,7 @@ def bitmap_hits(qcnt, planes):
     if b == 0 or ntiles == 0:
         return hits
     rows, mults = _cuda_operands(qcnt, planes)
-    lib = _lib()
+    lib = _lib("bitmap_hits")
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
         err = lib.bitmap_hits_launch(

@@ -1,13 +1,21 @@
-"""Candidate-sparse batched search: the bitmap front ends (full-table and
-gathered-row) with their three finishes.
+"""Candidate-sparse batched search: the gram-matrix, sorted-runs and bitmap
+front ends (full-table and gathered-row) with their finishes.
 
-PyTorch counterpart of the parts of ``stringsearchlib_tpu.search.candidates``
-that the bitmap routes run.  Hit counts for the whole batch come from K1
-(ops.bitmap_matmul.bitmap_hits_bmax, hits and 128-term block maxima) or K2
-(bitmap_hits, hits only) over the bit-packed incidence - the resident
-table, or on the gathered route (``candidates_bitmap_gather``) the batch's
-own gram rows copied out of it by the gather kernel.  One of three finishes
-then selects candidates:
+PyTorch counterpart of ``stringsearchlib_tpu.search.candidates``.  Hit
+counts for the whole batch come from one of:
+
+  * ``candidates_matmul``: one product of the query gram multiplicities
+    with the dense (G, Tl) int8 incidence (``gram_hits``; ``torch._int_mm``
+    on the card, as the reference leaves its dot to XLA);
+  * ``candidates_runs``: each query's own postings expanded by kernel K6
+    (ops.vgather), sorted into runs whose lengths are the hit counts;
+  * K1 (ops.bitmap_matmul.bitmap_hits_bmax, hits and 128-term block
+    maxima) or K2 (bitmap_hits, hits only) over the bit-packed incidence -
+    the resident table, or on the gathered route
+    (``candidates_bitmap_gather``) the batch's own gram rows copied out of it
+    by the gather kernel.
+
+One of four finishes then selects candidates:
 
   * ``_hstar_finish``: integer hit-threshold selection (uniform weights);
   * ``_blockmax_finish``: block upper bounds from the int8 block maxima and
@@ -15,11 +23,13 @@ then selects candidates:
     (huge lane spaces, any weights);
   * ``_dense_hits_finish``: per-lane bounds over the whole hit matrix and
     ``_select_candidates`` (small lane spaces, any weights);
+  * the runs route's own lanes through ``_finish_candidates``;
 
 and the shared back half ``_finish_selected`` expands edges, scores
 promotion keys, ranks (score desc, key length asc) and sets the exactness
-guard.  Every per-query ``jax.vmap`` body of the reference is written out
-here with an explicit batch dimension.
+guard.  The short tier's DP scores come from kernel K5 (ops.dp_match).
+Every per-query ``jax.vmap`` body of the reference is written out here with
+an explicit batch dimension.
 
 Exactness guarantee (the host falls back to the dense path when it fails):
   * if every passing term was selected and no edge overflowed, scores,
@@ -40,12 +50,12 @@ Multi-key sorts are stable single-key sorts applied least-significant key
 first.  Negated scores are canonicalized (+0.0 for -0.0) before sorting so
 a zero score forms one tie class, as in the reference's float comparator.
 
-Not ported (ROADMAP): the dense matmul, scan and runs
-front ends; ``topk_guarded``'s approximate mode (selection is exact, so no
-row ever misses); ``BLOCKMAX_IMPL`` (``block_hmax`` is one reduction); the
-gathered route's 8-dot XLA branch (the reference's CPU and ``gc % 32``
-fallback: Gc is a power of two >= 32, and on CPU K1's plain version runs on
-the compact table).
+Not ported (ROADMAP): the bitmap scan front end; ``topk_guarded``'s
+approximate mode (selection is exact, so no row ever misses);
+``BLOCKMAX_IMPL`` (``block_hmax`` is one reduction); the gathered route's
+8-dot XLA branch (the reference's CPU and ``gc % 32`` fallback: Gc is a
+power of two >= 32, and on CPU K1's plain version runs on the compact
+table).
 """
 
 from __future__ import annotations
@@ -54,7 +64,9 @@ import numpy as np
 import torch
 
 from ..config import PERFECT_SCORE_CUTOFF, PROMOTED_SCORE
+from ..ops.vgather import gather_tables
 from .editdist import dp_match
+from .overlap import posting_index
 
 _NEG_INF = float("-inf")
 
@@ -329,15 +341,17 @@ def _finish_candidates(
     limits, threshold, *, n_cand, n_edge, top_k, block_sel=False,
 ):
     """From per-lane upper bounds and scores (B, N) and the lanes' global
-    term ids ``gid_all`` (N,) to the final ranked slice (passing lanes
-    carry u = wmax * s, others -inf)."""
+    term ids ``gid_all`` ((N,), or (B, N) where each query's lanes hold its
+    own terms) to the final ranked slice (passing lanes carry u = wmax * s,
+    others -inf)."""
     ub, sel, u_c, covered = _select_candidates(
         u_all, n_pass, n_cand=n_cand, block_sel=block_sel
     )
     sel_valid = ub > _NEG_INF
-    sel_c = sel.clamp(0, gid_all.shape[0] - 1)
+    sel_c = sel.clamp(0, gid_all.shape[-1] - 1)
+    t_sel = gid_all.gather(1, sel_c) if gid_all.ndim == 2 else gid_all[sel_c]
     return _finish_selected(
-        di, pt, xt, gid_all[sel_c], s_all.gather(1, sel_c), sel_valid, u_c,
+        di, pt, xt, t_sel, s_all.gather(1, sel_c), sel_valid, u_c,
         covered, term_score, promo_pack, limits, threshold, n_edge=n_edge,
         top_k=top_k,
     )
@@ -903,4 +917,217 @@ def hstar_retry(
         promo_ids, promo_terms, promo_weights, limits, threshold,
         compute_short=compute_short, kb1=kb1, kb2=kb2, n_cand=n_cand,
         n_edge=n_edge, top_k=top_k, vmax=vmax, blk=_BLK, fill=0,
+    )
+
+
+# ---------------------------------------------------------------------------
+# the gram-matrix front end (gram-dense corpora)
+# ---------------------------------------------------------------------------
+
+
+def gram_hits(qslots, gram_matrix):
+    """(B, Qmax) gram slots x (Gp, Tlp) int8 0/1 incidence -> (B, Tlp)
+    int32 hit counts, exact.
+
+    On the card one ``torch._int_mm`` (int8 x int8 -> int32) per base-128
+    digit of the multiplicities: a gram's multiplicity is at most Qmax, so
+    Qmax <= 127 takes one product (the reference's int8 dot) and wider slot
+    matrices two or more (its int32 dot).  Rows pad to a multiple of 8 past
+    16, as ``_int_mm`` requires; the matrix's Gp and Tlp are multiples of
+    8 already (HostIndex.gram_matrix).  On the CPU one int32 product."""
+    gp = gram_matrix.shape[0]
+    qcnt = query_counts(qslots, gp)
+    if gram_matrix.device.type == "cpu":
+        return qcnt @ gram_matrix.to(torch.int32)
+    b = qcnt.shape[0]
+    bp = max(-(-b // 8) * 8, 24)
+    if bp != b:
+        qcnt = torch.cat([qcnt, qcnt.new_zeros((bp - b, gp))], 0)
+    hits = None
+    scale, rest = 1, qslots.shape[1]
+    while True:
+        digit = (qcnt // scale) % 128
+        h = torch._int_mm(digit.to(torch.int8), gram_matrix)
+        hits = h if hits is None else hits + h * scale
+        rest //= 128
+        if rest == 0:
+            break
+        scale *= 128
+    return hits[:b]
+
+
+def candidates_matmul(
+    di,
+    gram_matrix,  # (Gp, Tlp) int8 0/1 incidence (HostIndex.gram_matrix)
+    pt,  # (T, 4) int32 primary-edge records (HostIndex.prim_tables)
+    xt,  # (X, 4) int32 extra-edge records
+    qtokens,  # (B, Qp) int32
+    qlens,  # (B,) int32
+    qslots,  # (B, Qmax) int32 gram slots, -1 absent, multiplicity kept
+    n_qgrams,  # (B,) int32
+    use_short,  # (B,) bool
+    promo_ids,  # (B, PK) int32, -1 padded
+    promo_terms,  # (B, PK, PE) int32 promo edge term ids, -1 padded
+    promo_weights,  # (B, PK, PE) float32 promo edge weights
+    limits,  # (B,) int32
+    threshold,  # float32
+    *,
+    compute_short: bool,
+    n_cand: int,
+    n_edge: int,
+    top_k: int,
+    block_sel: bool = False,
+    hstar: bool = False,
+    kb1: int = 512,
+    kb2: int = 512,
+    hs_fill: int = 2,
+):
+    """Exact hit counts for the whole batch as one product of the query
+    gram multiplicities with the dense incidence (``gram_hits``), then the
+    h* finish (uniform weights, <= 127 gram windows: the hits narrowed to
+    int8, padded to 1024-lane multiples, 128-lane block maxima) or the
+    dense-hits finish, as the reference's candidates_matmul_impl.  The
+    reference leaves the product to XLA outside any Pallas kernel."""
+    ts, tl = di.n_short, di.n_long
+    compute_short = compute_short and ts > 0
+    hits = gram_hits(qslots, gram_matrix)[:, :tl]
+    kw = dict(compute_short=compute_short, n_cand=n_cand, n_edge=n_edge,
+              top_k=top_k)
+    args = (qtokens, qlens, n_qgrams, use_short, promo_ids, promo_terms,
+            promo_weights, limits, threshold)
+    if hstar and qslots.shape[1] <= 127:
+        h8 = hits.to(torch.int8)  # exact: counts <= Qmax <= 127
+        pad = (-tl) % (_BLK * 8)
+        if pad:
+            h8 = torch.cat([h8, h8.new_zeros((h8.shape[0], pad))], 1)
+        nblk = h8.shape[1] // _BLK
+        return _hstar_finish(
+            di, pt, xt, h8, block_hmax(h8, nblk, _BLK), *args, kb1=kb1,
+            kb2=kb2, vmax=int(qslots.shape[1]), blk=_BLK, fill=hs_fill, **kw,
+        )
+    return _dense_hits_finish(
+        di, pt, xt, hits, *args, block_sel=block_sel, **kw
+    )
+
+
+# ---------------------------------------------------------------------------
+# the sorted-runs front end (gram-sparse corpora, tiny batches)
+# ---------------------------------------------------------------------------
+
+
+def candidates_runs(
+    di,
+    pt,  # (T, 4) int32 primary-edge records
+    xt,  # (X, 4) int32 extra-edge records
+    qtokens,  # (B, Qp) int32
+    qlens,  # (B,) int32
+    qslots,  # (B, Qmax) int32 gram slots, -1 absent, multiplicity kept
+    n_qgrams,  # (B,) int32
+    use_short,  # (B,) bool
+    promo_ids,  # (B, PK) int32, -1 padded
+    promo_terms,  # (B, PK, PE) int32 promo edge term ids, -1 padded
+    promo_weights,  # (B, PK, PE) float32 promo edge weights
+    limits,  # (B,) int32
+    threshold,  # float32
+    *,
+    compute_short: bool,
+    s_cap: int,
+    n_cand: int,
+    n_edge: int,
+    top_k: int,
+    block_sel: bool = False,
+):
+    """Hit counts from each query's own postings, as the reference's
+    candidates_runs_impl with its batch dimension written out: every
+    query's posting ranges expand into ``s_cap`` lanes of term ids (the
+    CSR-expand pattern, then kernel K6 with the sentinel tl on invalid
+    lanes), the lanes sort so each term's postings form a run, a run's
+    length is the term's hit count, and each run's first lane carries the
+    term's score and bound.  Work follows the batch's posting mass, not the
+    index size, and no table is built."""
+    ts, tl = di.n_short, di.n_long
+    compute_short = compute_short and ts > 0
+    t_total = ts + tl
+    b = qslots.shape[0]
+    dev = qslots.device
+    thr = _f32(threshold)
+    nqg = n_qgrams.to(torch.int32)
+    nqg_f = torch.clamp(nqg.to(torch.float32), min=1.0)
+
+    # -- postings expansion -> sorted run lanes ----------------------------
+    idx = posting_index(di.gram_ptr, qslots, s_cap)
+    tid = gather_tables(idx, [di.gram_terms], [tl])[0]
+    del idx
+    pos = torch.arange(s_cap, dtype=torch.int64, device=dev).expand(b, s_cap)
+    tid_sorted = torch.sort(tid, dim=1).values  # sentinels (tl) sink to the end
+    del tid
+    lane_valid = tid_sorted < tl
+
+    # -- run starts / lengths (hit counts) ---------------------------------
+    first = lane_valid.clone()
+    first[:, 1:] &= tid_sorted[:, 1:] != tid_sorted[:, :-1]
+    n_valid = lane_valid.sum(1)
+    starts_sorted = torch.sort(torch.where(first, pos, s_cap), dim=1).values
+    next_start = torch.cat(
+        [starts_sorted[:, 1:], torch.full((b, 1), s_cap, dtype=torch.int64, device=dev)],
+        1,
+    )
+    run_len = torch.where(
+        starts_sorted < s_cap,
+        torch.minimum(next_start, n_valid[:, None]) - starts_sorted,
+        0,
+    )
+    del starts_sorted, next_start
+    run_id = first.to(torch.int32).cumsum(1) - 1
+    hits_lane = run_len.gather(1, run_id.clamp(0, s_cap - 1).long())
+    del run_len, run_id
+    s_long_lane = hits_lane.to(torch.float32) / nqg_f[:, None]
+    long_pass = first & (nqg > 0)[:, None] & (s_long_lane >= thr)
+    n_pass = long_pass.sum(1)
+    gid_lane = (ts + tid_sorted.long()).clamp(0, max(t_total - 1, 0))
+    u_long = torch.where(
+        long_pass, di.term_wmax[gid_lane] * s_long_lane, _NEG_INF
+    )
+    del long_pass
+
+    def long_score(p_t):
+        # hits at arbitrary global term ids: binary search into the lanes
+        p_local = (p_t - ts).clamp(0, tl).reshape(b, -1).to(tid_sorted.dtype)
+        pl = torch.searchsorted(tid_sorted, p_local.contiguous())
+        pl_c = pl.clamp(0, s_cap - 1)
+        found = (
+            (tid_sorted.gather(1, pl_c) == p_local) & (pl < s_cap)
+            & (p_t >= ts).reshape(b, -1)
+        )
+        p_s = hits_lane.gather(1, pl_c).to(torch.float32) / nqg_f[:, None]
+        ok = found & (nqg > 0)[:, None] & (p_s >= thr)
+        return p_s.view(p_t.shape), ok.view(p_t.shape)
+
+    if compute_short:
+        s_short, pass_short, u_short = _short_terms(
+            di, qtokens, qlens, use_short, thr
+        )
+        n_pass = n_pass + pass_short.sum(1)
+        u_all = torch.cat([u_short, u_long], 1)
+        s_all = torch.cat([s_short, s_long_lane], 1)
+        gid_all = torch.cat(
+            [torch.arange(ts, device=dev).expand(b, ts), gid_lane], 1
+        )
+
+        def term_score(p_t):
+            p_sl, p_pl = long_score(p_t)
+            p_sh = p_t < ts
+            idx_s = p_t.clamp(0, ts - 1).reshape(b, -1).long()
+            return (
+                torch.where(p_sh, s_short.gather(1, idx_s).view(p_t.shape), p_sl),
+                torch.where(p_sh, pass_short.gather(1, idx_s).view(p_t.shape), p_pl),
+            )
+    else:
+        u_all, s_all, gid_all = u_long, s_long_lane, gid_lane
+        term_score = long_score
+
+    return _finish_candidates(
+        di, pt, xt, u_all, s_all, gid_all, n_pass, term_score,
+        (promo_ids, promo_terms, promo_weights), limits, threshold,
+        n_cand=n_cand, n_edge=n_edge, top_k=top_k, block_sel=block_sel,
     )

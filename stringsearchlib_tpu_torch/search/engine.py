@@ -11,15 +11,21 @@ an explicit batch dimension where the reference vmapped.
   -> stable sort (score desc, key length asc; ScoreComparer,
      nGramSearch.h:262-269) -> top-k slice + reached count.
 
-Batched searches on large indexes take a candidate route (``_cand_pass``):
-over the packed incidence, K1 hit counts with the integer h* finish and a
+Batched searches on large indexes take a candidate route (``_cand_pass``),
+in the reference's gate order: the gram-matrix product where the dense
+incidence fits GM_BUDGET (``matmul``, h* or dense-hits finish); the sorted
+runs for batches of at most RUNS_TINY_BATCH queries on large indexes
+(``tiny_runs``: the postings expansion K6, a sort, no table); over the
+packed incidence, K1 hit counts with the integer h* finish and a
 selection-only retry on the retained hits (uniform weights), or K1/K2 with
-the blockmax or dense-hits finish (any weights); for batches of at most
-GATHER_BATCH queries, optionally the same over the batch's own gram rows
+the blockmax or dense-hits finish (any weights), and for batches of at most
+GATHER_BATCH queries optionally the same over the batch's own gram rows
 (the gathered-row route); for indexes whose packed incidence is over
-budget, K2 over the packed bucket sketch with exact rescoring.  Non-h*
-routes escalate through one full pass at wider budgets.  Rows whose
-exactness guard still fails take the dense path.
+budget, K2 over the packed bucket sketch with exact rescoring; else the
+sorted runs (``runs``).  Non-h* routes escalate through one full pass at
+wider budgets.  Rows whose exactness guard still fails take the dense path,
+whose short tier and brute tier run the edit-distance kernel K5 and whose
+postings expansion runs K6.
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ from ..core import grams as gramlib
 from ..core import text as textlib
 from ..index.build import HostIndex
 from .candidates import (
-    _BLK, _f32, candidates_bitmap_gather, candidates_bitmap_mxu, hstar_retry,
+    _BLK, _f32, candidates_bitmap_gather, candidates_bitmap_mxu,
+    candidates_matmul, candidates_runs, hstar_retry,
 )
 from .editdist import dp_match, dp_match_tiered
 from .overlap import gather_hits
@@ -671,6 +678,9 @@ class SearchEngine:
             pending.append((chunk, b, _pack(*res)))
         self._emit_dense(pending, limit, out)
 
+    # device-memory budget for the dense gram->term incidence of the
+    # gram-matrix route (int8, G * Tl bytes)
+    GM_BUDGET = 4 << 30
     # device-memory budget for the bit-packed incidence (G * Tl/8 bytes)
     BITMAP_BUDGET = 6 << 30
     # integer hit-threshold (h*) selection on the bitmap-kernel route
@@ -690,10 +700,10 @@ class SearchEngine:
     # sketch first-pass budgets: superblocks and blocks kept per query
     SK_KSB = 512
     SK_KB = 1024
-    # batches this small on large indexes go to the reference's sorted-runs
-    # route when each query's posting mass fits RUNS_TINY_LANES; the port
-    # has no runs route, so they keep the h* kernel route where the index
-    # is uniform and take the dense path otherwise
+    # batches this small on large indexes without a gram matrix take the
+    # sorted-runs route (tiny_runs) when each query's posting mass fits
+    # RUNS_TINY_LANES: their cost follows the queries' postings, where the
+    # bitmap and sketch routes stream a whole table per dispatch
     RUNS_TINY_BATCH = 8
     RUNS_TINY_LANES = 1 << 20
     # batches of at most GATHER_BATCH queries may take the gathered-row
@@ -837,11 +847,15 @@ class SearchEngine:
 
         The reference's gates, in the reference's order:
 
+          * the dense gram matrix fits GM_BUDGET: ``matmul``, one product
+            of the batch's gram multiplicities with it, then the h* finish
+            where every edge weight is 1, queries hold <= 127 gram windows
+            and the lane space dwarfs the h* budgets, else the dense-hits
+            finish;
           * tiny runs: at most RUNS_TINY_BATCH queries whose posting mass
-            fits RUNS_TINY_LANES, on an index of >= SKETCH_MIN_TERMS terms,
-            go to the reference's sorted-runs route, which the port does not
-            have: they keep the full-table h* route where the index is
-            uniform and h*-eligible, and take the dense path otherwise;
+            fits RUNS_TINY_LANES, on an index of >= SKETCH_MIN_TERMS terms
+            without a gram matrix: ``tiny_runs``, the sorted-runs route, and
+            no table is built;
           * the packed table fits BITMAP_BUDGET and queries hold <= 127 gram
             windows: the bitmap routes.  With BITMAP_GATHER_TMAJ, batches of
             <= GATHER_BATCH queries whose gram union fits GATHER_ROWS_MAX
@@ -856,12 +870,13 @@ class SearchEngine:
           * the packed table does not fit, the index holds >=
             SKETCH_MIN_TERMS terms, queries hold <= 127 gram windows and the
             sketch fits SKETCH_BUDGET: ``sketch_packed``, K2 over the packed
-            bucket sketch and exact rescoring.
+            bucket sketch and exact rescoring;
+          * none of these: ``runs``, the sorted-runs route.
 
         Batches the reference sends to routes the port does not have - the
-        tiny sorted runs, the unpacked sketch and the bitmap scan (more
-        than 127 windows) - go to the dense path unchanged: a routing
-        decision with the same results, independent of the device.
+        unpacked sketch and the bitmap scan (more than 127 windows) - go to
+        the dense path unchanged: a routing decision with the same results,
+        independent of the device.
         Returns (rows for the dense path, n_cand, selectable lanes, retry
         context)."""
         di = self.host.device
@@ -876,39 +891,47 @@ class SearchEngine:
             items, qp
         )
         compute_short = bool(use_short.any())
+        short_lanes = ts if compute_short else 0
         hs_scale = max(cand_cap // self.CAND_TERMS_FAST, 1)
         hs_kb1 = self.HSTAR_KB1 * hs_scale
         hs_kb2 = self.HSTAR_KB2 * hs_scale
         hs_fill = self.HSTAR_FILL if cand_cap == self.CAND_TERMS_FAST else 0
         int8_counts = slots.shape[1] <= 127  # K1/K2 count contract
+        uniform_hstar = self.HSTAR_SEL and self.host.uniform_weights
+        gm = self.host.gram_matrix(self.GM_BUDGET)
         tiny_runs = (
-            self.host.n_terms >= self.SKETCH_MIN_TERMS
+            gm is None
+            and self.host.n_terms >= self.SKETCH_MIN_TERMS
             and len(items) <= self.RUNS_TINY_BATCH
             and s_cap <= self.RUNS_TINY_LANES
         )
-        uniform_hstar = self.HSTAR_SEL and self.host.uniform_weights
         bm = sk = None
-        if int8_counts and (uniform_hstar or not tiny_runs):
-            bm = self.host.bitmap_tables(self.BITMAP_BUDGET)
-        if (
-            bm is None
-            and not self.host.bitmap_fits(self.BITMAP_BUDGET)
-            and self.host.n_terms >= self.SKETCH_MIN_TERMS
-            and not tiny_runs
-            and self.SKETCH_PACKED
-            and int8_counts
-        ):
-            sk = self.host.sketch_tables(self.SKETCH_BUDGET)
+        unported = False  # the bitmap scan or the unpacked sketch
+        if gm is None and not tiny_runs:
+            if int8_counts:
+                bm = self.host.bitmap_tables(self.BITMAP_BUDGET)
+            elif self.host.bitmap_fits(self.BITMAP_BUDGET):
+                unported = True
+            if (bm is None and not unported
+                    and self.host.n_terms >= self.SKETCH_MIN_TERMS):
+                if int8_counts and self.SKETCH_PACKED:
+                    sk = self.host.sketch_tables(self.SKETCH_BUDGET)
+                unported = sk is None and self.host.sketch_fits(
+                    self.SKETCH_BUDGET, packed=False
+                )
         gplan = None
-        if bm is not None:
+        bm_hstar = gm_hstar = False
+        if gm is not None:
+            variant = "matmul"
+            n_lanes = short_lanes + tl
+            gm_hstar = uniform_hstar and int8_counts
+            per_q = 48 * (ts + tl) + 24 * n_edge + (1 << 16)
+        elif bm is not None:
             tlp = int(bm[1])
-            n_lanes = (ts if compute_short else 0) + tlp
-            if (
-                not tiny_runs
-                and len(items) <= self.GATHER_BATCH
-                and self.BITMAP_GATHER_TMAJ
-            ):
+            n_lanes = short_lanes + tlp
+            if len(items) <= self.GATHER_BATCH and self.BITMAP_GATHER_TMAJ:
                 gplan = self._gather_rows_plan(slots)
+            variant = "bitmap_kernel" if gplan is None else "bitmap_gather"
             bm_fused = self.BITMAP_FUSED_BMAX or tlp >= self.BITMAP_FUSED_MIN_TLP
             if uniform_hstar:
                 bm_fused = True
@@ -917,15 +940,31 @@ class SearchEngine:
             # finish's gathers
             blk_eff = _BLK if bm_fused else self.BITMAP_BMAX_BLK
             kept = hs_kb2 if uniform_hstar else cand_cap
-            per_q = (tlp if bm_fused else 2 * tlp) + 16 * kept * blk_eff
+            per_q = (
+                (tlp if bm_fused else 2 * tlp) + 16 * kept * blk_eff
+                + 24 * n_edge + 48 * short_lanes + (1 << 16)
+            )
             bm_hstar = uniform_hstar and n_lanes >= 4 * hs_kb2 * _BLK
-            if tiny_runs and not bm_hstar:
-                bm = None
+        elif sk is not None:
+            variant = "sketch_packed"
+            n_lanes = short_lanes + tl
+            # the reference's sketch budget; the port holds the int8 hits
+            # and ~14 B per kept block lane, its block maxima built in
+            # fixed-size slabs (search.sketch)
+            per_q = (
+                3 * int(sk[1].shape[0]) + 24 * n_edge + 48 * short_lanes
+                + (1 << 16)
+            )
+        elif unported:
+            variant = "dense"
+            n_lanes = short_lanes + tl
         else:
-            n_lanes = (ts if compute_short else 0) + tl
+            variant = "tiny_runs" if tiny_runs else "runs"
+            n_lanes = short_lanes + s_cap
+            per_q = 48 * s_cap + 24 * n_edge + 48 * short_lanes + (1 << 16)
         n_cand = min(cand_cap, max(_next_pow2(n_lanes, 16), 16), n_lanes)
         block_sel = bool(n_lanes >= 4 * n_cand * _BLK)
-        if bm is None and sk is None:
+        if variant == "dense":
             self.last_routing = {
                 "variant": "dense",
                 "step": self._batch_cap(batch_bucket),
@@ -936,33 +975,38 @@ class SearchEngine:
             }
             return list(items), n_cand, n_lanes, None
 
-        if bm is None:
-            # the reference's sketch budget; the port holds the int8 hits
-            # and ~14 B per kept block lane, its block maxima built in
-            # fixed-size slabs (search.sketch)
-            per_q = 3 * int(sk[1].shape[0])
-        per_q += 24 * n_edge + (48 * ts if compute_short else 0) + (1 << 16)
         cap = max(int(self.BATCH_HBM_BUDGET // per_q), 8)
         step = 8
         while step * 2 <= min(cap, batch_bucket):
             step *= 2
         pt, xt = self.host.prim_tables()
         bm_gather = gplan is not None
-        keep_sel = bm is not None and not bm_gather and bm_hstar and (
+        keep_sel = variant == "bitmap_kernel" and bm_hstar and (
             cand_cap == self.CAND_TERMS_FAST
         )
         self.last_routing = {
-            "variant": "sketch_packed",
+            "variant": variant,
             "step": step,
             "n_cand": n_cand,
             "block_sel": block_sel,
             "approx_sel": False,
         }
+        hs_kw = dict(hstar=True, kb1=hs_kb1, kb2=hs_kb2, hs_fill=hs_fill)
         bm_slots = slots
-        if bm is not None:
+        if gm is not None:
+            gm_hstar = gm_hstar and n_lanes >= 4 * hs_kb2 * _BLK
+            self.last_routing["hstar"] = bool(gm_hstar)
+            gm_kw = hs_kw if gm_hstar else {}
+
+            def front(sl, lim_d):
+                return candidates_matmul(
+                    di, gm, pt, xt, *_args(sl, lim_d),
+                    compute_short=compute_short, n_cand=n_cand, n_edge=n_edge,
+                    top_k=top_k, block_sel=block_sel, **gm_kw,
+                )
+        elif bm is not None:
             bm_table = bm[0]
             self.last_routing.update(
-                variant="bitmap_gather" if bm_gather else "bitmap_kernel",
                 gp_rows=int(bm_table.shape[1]),
                 gtile=False,
                 fused_bmax=bool(bm_fused and not bm_gather),
@@ -976,30 +1020,25 @@ class SearchEngine:
                 g_rows, bm_slots, g_gc = gplan
                 self.last_routing["gather_rows"] = int(g_gc)
                 rows_d = self._t(g_rows)
-            hs_kw = {}
+            bm_kw = {}
             if bm_hstar:
                 self.last_routing.update(kb1=hs_kb1, kb2=hs_kb2)
-                hs_kw = dict(hstar=True, kb1=hs_kb1, kb2=hs_kb2, hs_fill=hs_fill)
+                bm_kw = hs_kw
 
             def front(sl, lim_d):
-                args = (
-                    qtok_d[sl], qlens_d[sl], slots_d[sl], nqg_d[sl],
-                    ushort_d[sl], promo_d[sl], promo_t_d[sl], promo_w_d[sl],
-                    lim_d, np.float32(threshold),
-                )
                 kw = dict(compute_short=compute_short, n_cand=n_cand,
                           n_edge=n_edge, top_k=top_k, block_sel=block_sel,
-                          **hs_kw)
+                          **bm_kw)
                 if bm_gather:
                     return candidates_bitmap_gather(
-                        di, bm_table, rows_d, pt, xt, *args, **kw
+                        di, bm_table, rows_d, pt, xt, *_args(sl, lim_d), **kw
                     )
                 return candidates_bitmap_mxu(
-                    di, bm_table, pt, xt, *args, fused_bmax=bm_fused,
+                    di, bm_table, pt, xt, *_args(sl, lim_d), fused_bmax=bm_fused,
                     bmax_blk=self.BITMAP_BMAX_BLK,
                     kb_lanes=self.BITMAP_KB_LANES, keep_hits=keep_sel, **kw,
                 )
-        else:
+        elif sk is not None:
             inc, tg, wmax_pad, d_log2 = sk
             # superblock count from the TERM width (tg rows), not the
             # packed table's byte width
@@ -1012,15 +1051,27 @@ class SearchEngine:
 
             def front(sl, lim_d):
                 return candidates_sketch(
-                    di, inc, tg, wmax_pad, pt, xt, qtok_d[sl], qlens_d[sl],
-                    slots_d[sl], nqg_d[sl], ushort_d[sl], promo_d[sl],
-                    promo_t_d[sl], promo_w_d[sl], lim_d,
-                    np.float32(threshold), d_log2=d_log2,
-                    compute_short=compute_short,
+                    di, inc, tg, wmax_pad, pt, xt, *_args(sl, lim_d),
+                    d_log2=d_log2, compute_short=compute_short,
                     n_cand=min(n_cand, kb * 128),
                     n_short_cand=n_short_cand, ksb=ksb, kb=kb,
                     n_edge=n_edge, top_k=top_k,
                 )
+        else:
+
+            def front(sl, lim_d):
+                return candidates_runs(
+                    di, pt, xt, *_args(sl, lim_d), compute_short=compute_short,
+                    s_cap=s_cap, n_cand=n_cand, n_edge=n_edge, top_k=top_k,
+                    block_sel=block_sel,
+                )
+
+        def _args(sl, lim_d):
+            return (
+                qtok_d[sl], qlens_d[sl], slots_d[sl], nqg_d[sl], ushort_d[sl],
+                promo_d[sl], promo_t_d[sl], promo_w_d[sl], lim_d,
+                np.float32(threshold),
+            )
 
         promo_all = np.full((b_all, self.PROMO_KEYS), -1, dtype=np.int32)
         for r, item in enumerate(items):
@@ -1038,8 +1089,9 @@ class SearchEngine:
         promo_d = self._t(promo_all)
         promo_t_d = self._t(promo_t)
         promo_w_d = self._t(promo_w)
-        # the gathered route pads its chunks to 8 queries, the others to 16
-        min_b = 8 if bm_gather else 16
+        # the gathered route pads its chunks to 8 queries, tiny runs to a
+        # power of two from 1, the others to 16
+        min_b = 1 if tiny_runs else (8 if bm_gather else 16)
         pending = []
         for lo in range(0, len(items), step):
             hi = min(lo + step, len(items))

@@ -424,6 +424,7 @@ def test_engine_weighted_route_matches_jax(case, monkeypatch, setting):
     jh, ph, _ = case
     je = _jax_kernel_engine(monkeypatch, jh)
     pe = PEngine(ph)
+    pe.GM_BUDGET = 0
     pe.CAND_MIN_TERMS = 100
     for eng in (je, pe):
         if setting != "dense_hits":  # lane space >= 4 * n_cand blocks
@@ -466,6 +467,7 @@ def test_engine_wide_g2_route_matches_jax(monkeypatch, block_sel):
     ph = pbuild(words, 1, None, IndexConfig(wide=True, gram_size=2), device="cpu")
     je = _jax_kernel_engine(monkeypatch, jh)
     pe = PEngine(ph)
+    pe.GM_BUDGET = 0
     pe.CAND_MIN_TERMS = 100
     if block_sel:
         for eng in (je, pe):

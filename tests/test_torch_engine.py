@@ -83,6 +83,7 @@ def test_bitmap_kernel_route_matches_jax_and_oracle(pair, monkeypatch, kb):
     """The candidate route (K1's plain version on CPU, h*, selection-only
     retry, dense retry) against the JAX engine and the oracle."""
     words, je, pe, oracle = pair
+    monkeypatch.setattr(pe, "GM_BUDGET", 0)
     monkeypatch.setattr(pe, "CAND_MIN_TERMS", 100)
     monkeypatch.setattr(pe, "HSTAR_KB1", kb[0])
     monkeypatch.setattr(pe, "HSTAR_KB2", kb[1])
@@ -160,6 +161,7 @@ def test_weighted_index_takes_dense_route(monkeypatch):
     ph = pbuild(words, 1, w, IndexConfig(), device="cpu")
     assert not ph.uniform_weights
     pe, je = PEngine(ph), JEngine(jh)
+    monkeypatch.setattr(pe, "GM_BUDGET", 0)
     monkeypatch.setattr(pe, "CAND_MIN_TERMS", 100)
     queries = [x[:-1] + "x" for x in words[:12]]
     got = pe.search_batch(queries, 0.25, 10, mode="candidates")

@@ -264,6 +264,7 @@ def test_engine_gather_route_matches_jax(monkeypatch, weighted):
     ph = pbuild(words, 1, weights, IndexConfig(), device="cpu")
     je = _jax_gather_engine(monkeypatch, jh)
     pe = PEngine(ph)
+    pe.GM_BUDGET = 0
     pe.CAND_MIN_TERMS = 100
     pe.BITMAP_GATHER_TMAJ = True
     for eng in (je, pe):  # h* budgets the small lane space dwarfs
@@ -299,6 +300,7 @@ def test_engine_gather_retry_pass_pads_to_8(monkeypatch):
     words = _corpus(3000, seed=47)
     ph = pbuild(words, 1, None, IndexConfig(), device="cpu")
     pe = PEngine(ph)
+    pe.GM_BUDGET = 0
     pe.CAND_MIN_TERMS = 100
     pe.BITMAP_GATHER_TMAJ = True
     pe.HSTAR_KB1 = pe.HSTAR_KB2 = 1

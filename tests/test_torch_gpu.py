@@ -1,7 +1,8 @@
-"""Tests of the PyTorch port that need a CUDA card: the hand-written K1, K2
-and row-gather kernels against their plain versions, and the index build
-and the search (bitmap-kernel, gathered-row, weighted-bitmap and sketch
-routes) on the card against the same on the CPU.  They import no jax, so on a machine
+"""Tests of the PyTorch port that need a CUDA card: the hand-written K1, K2,
+row-gather, edit-distance (K5) and table-gather (K6) kernels against their
+plain versions, and the index build and the search (bitmap-kernel,
+gathered-row, weighted-bitmap, sketch, gram-matrix and sorted-runs routes)
+on the card against the same on the CPU.  They import no jax, so on a machine
 with a card and no jax they run with
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -18,6 +19,9 @@ from stringsearchlib_tpu_torch.config import IndexConfig
 from stringsearchlib_tpu_torch.index.arrays import FIELDS
 from stringsearchlib_tpu_torch.index.build import build_index
 from stringsearchlib_tpu_torch.ops import bitmap_matmul as pbm
+from stringsearchlib_tpu_torch.ops import dp_match as pdp
+from stringsearchlib_tpu_torch.ops import vgather as pvg
+from stringsearchlib_tpu_torch.search import candidates as pc
 from stringsearchlib_tpu_torch.search.engine import SearchEngine
 
 pytestmark = pytest.mark.gpu
@@ -82,6 +86,7 @@ def test_search_on_cuda_matches_cpu(cuda, kb):
     engines = []
     for dev in ("cpu", cuda):
         eng = SearchEngine(build_index(words, 1, None, IndexConfig(), device=dev))
+        eng.GM_BUDGET = 0
         eng.CAND_MIN_TERMS = 100
         eng.HSTAR_KB1, eng.HSTAR_KB2 = kb
         engines.append(eng)
@@ -130,7 +135,8 @@ def test_sketch_route_on_cuda_matches_cpu(cuda):
     for dev in ("cpu", cuda):
         host = build_index(words, 2, weights, IndexConfig(), device=dev)
         eng = SearchEngine(host)
-        eng.BITMAP_BUDGET = eng.SKETCH_MIN_TERMS = eng.CAND_MIN_TERMS = 0
+        eng.GM_BUDGET = eng.BITMAP_BUDGET = 0
+        eng.SKETCH_MIN_TERMS = eng.CAND_MIN_TERMS = 0
         engines.append(eng)
     queries = [w[:-1] + "x" for w in rng.sample(words, 40)]
     launches = pbm.K2_LAUNCHES
@@ -189,6 +195,7 @@ def test_bitmap_routes_on_cuda_match_cpu(cuda, case):
     engines = []
     for dev in ("cpu", cuda):
         eng = SearchEngine(build_index(words, 1, weights, IndexConfig(), device=dev))
+        eng.GM_BUDGET = 0
         eng.CAND_MIN_TERMS = 100
         eng.BITMAP_GATHER_TMAJ = case != "weighted_kernel"
         if case == "gather_uniform":
@@ -214,3 +221,133 @@ def test_bitmap_routes_on_cuda_match_cpu(cuda, case):
     dense = engines[1].search_batch(queries, 0.25, 10, mode="dense")
     for g, d in zip(got, dense):
         assert sorted(zip(g[1], g[0])) == sorted(zip(d[1], d[0]))
+
+
+def _dp_case(rng, n, w, b, qp, wide):
+    """Random terms (lengths 0..W, a few over-long and negative ones) over a
+    small alphabet so matches happen, and queries with qlen 0, 1 and Qp."""
+    alpha = 6 if not wide else 40000
+    lo = 1 if not wide else 0x4E00
+    tokens = rng.integers(lo, lo + alpha, size=(n, w))
+    lengths = rng.integers(0, w + 1, size=n)
+    lengths[:3] = [0, w, w + 5][: min(n, 3)]
+    tokens[np.arange(w)[None, :] >= lengths[:, None]] = 0
+    qtok = rng.integers(lo, lo + alpha, size=(b, qp))
+    qlens = rng.integers(0, qp + 1, size=b)
+    qlens[: min(b, 3)] = [0, 1, qp][: min(b, 3)]
+    qtok[np.arange(qp)[None, :] >= qlens[:, None]] = 0
+    dt = np.int32 if wide else np.uint8
+    return (torch.from_numpy(tokens.astype(dt)), torch.from_numpy(lengths.astype(np.int32)),
+            torch.from_numpy(qtok.astype(np.int32)), torch.from_numpy(qlens.astype(np.int32)))
+
+
+@pytest.mark.parametrize("n,w,b,qp,wide", [
+    (3000, 8, 64, 16, False),     # short tier: state along the term
+    (2000, 40, 16, 16, False),    # state along the query
+    (1500, 100, 8, 80, True),     # wide tokens, over 64 on both sides: scratch
+    (700, 200, 4, 130, False),    # over 64 on both sides: the scratch form
+    (2000, 16, 8, 128, False),    # long queries over a short tier: term side
+    (1, 5, 1, 1, False),
+])
+def test_cuda_dp_match_matches_plain_version(cuda, n, w, b, qp, wide):
+    args = _dp_case(np.random.default_rng(n + w), n, w, b, qp, wide)
+    launches = pdp.K5_LAUNCHES
+    got = pdp.dp_match(*(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    assert pdp.K5_LAUNCHES == launches + 1
+    assert torch.equal(got.cpu(), pdp.dp_match_ref(*args))
+
+
+@pytest.mark.parametrize("n,w,b,qp", [(3000, 8, 64, 32), (2000, 16, 16, 16),
+                                      (2000, 16, 8, 128)])
+def test_cuda_dp_match_every_form_matches_plain_version(cuda, n, w, b, qp):
+    args = _dp_case(np.random.default_rng(n + qp), n, w, b, qp, False)
+    want = pdp.dp_match_ref(*args)
+    launches = pdp.K5_LAUNCHES
+    forms = ["scratch"] + [f for f, s in (("query", qp), ("term", w)) if s <= 64]
+    for form in forms:
+        got = pdp.launch_form(*(a.to(cuda) for a in args), form)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), form
+    assert pdp.K5_LAUNCHES == launches
+
+
+def test_cuda_dp_match_contracts(cuda):
+    args = [a.to(cuda) for a in _dp_case(np.random.default_rng(3), 40, 8, 4, 8, False)]
+    assert pdp.dp_match(args[0][:0], args[1][:0], args[2], args[3]).shape == (4, 0)
+    with pytest.raises(TypeError):
+        pdp.dp_match(args[0].long(), *args[1:])
+    with pytest.raises(ValueError):
+        pdp.dp_match(args[0], args[1][:5], args[2], args[3])
+
+
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n_tables", [1, 3])
+def test_cuda_gather_tables_matches_plain_version(cuda, idx_dtype, n_tables):
+    rng = np.random.default_rng(n_tables)
+    t_len = 100_003
+    tables = [torch.from_numpy(rng.integers(-2**31, 2**31 - 1, t_len, dtype=np.int64)
+                               .astype(np.int32))]
+    tables += [torch.from_numpy(rng.standard_normal(t_len).astype(np.float32))
+               for _ in range(n_tables - 1)]
+    fills = [7, -1.5, float("inf")][:n_tables]
+    for shape in ((8, 4099), (3, 1), (257, 64)):
+        idx = rng.integers(-50, t_len + 50, size=shape)
+        idx[0, :: 2] = np.sort(idx[0, :: 2])
+        idx = torch.from_numpy(idx).to(idx_dtype)
+        launches = pvg.K6_LAUNCHES
+        got = pvg.gather_tables(idx.to(cuda), [t.to(cuda) for t in tables], fills)
+        torch.cuda.synchronize()
+        assert pvg.K6_LAUNCHES == launches + 1
+        want = pvg.gather_tables_ref(idx, tables, fills)
+        for g, wnt in zip(got, want):
+            assert g.dtype == wnt.dtype and torch.equal(g.cpu(), wnt)
+
+
+def test_build_index_defaults_to_cuda(cuda):
+    host = build_index(_corpus(500, seed=3), 1, None, IndexConfig())
+    assert host.device.gram_terms.device.type == "cuda"
+
+
+@pytest.mark.parametrize("route", ["matmul", "runs", "tiny_runs"])
+def test_runs_and_matmul_routes_on_cuda_match_cpu(cuda, route):
+    words, weights = _weighted_corpus(3000, seed=45)
+    engines = []
+    for dev in ("cpu", cuda):
+        eng = SearchEngine(build_index(words, 1, weights, IndexConfig(), device=dev))
+        eng.CAND_MIN_TERMS = 100
+        if route != "matmul":
+            eng.GM_BUDGET = eng.BITMAP_BUDGET = 0
+            eng.SKETCH_MIN_TERMS = 10**9 if route == "runs" else 1
+        engines.append(eng)
+    rng = random.Random(13)
+    n = 24 if route != "tiny_runs" else 6
+    queries = [w[:-1] + "x" if i % 2 else w
+               for i, w in enumerate(rng.choice(words) for _ in range(n))]
+    counts = (pdp.K5_LAUNCHES, pvg.K6_LAUNCHES)
+    refs = (pdp.K5_REF_CALLS, pvg.K6_REF_CALLS)
+    got = engines[1].search_batch(queries, 0.25, 10, mode="candidates")
+    assert engines[1].last_routing["variant"] == route
+    assert (pdp.K5_REF_CALLS, pvg.K6_REF_CALLS) == refs
+    assert pdp.K5_LAUNCHES > counts[0]
+    if route != "matmul":
+        assert pvg.K6_LAUNCHES > counts[1]
+    assert got == engines[0].search_batch(queries, 0.25, 10, mode="candidates")
+    dense = engines[1].search_batch(queries, 0.25, 10, mode="dense")
+    for g, d in zip(got, dense):
+        assert sorted(zip(g[1], g[0])) == sorted(zip(d[1], d[0]))
+
+
+@pytest.mark.parametrize("qmax", [12, 200])
+def test_gram_hits_on_cuda_match_cpu(cuda, qmax):
+    """torch._int_mm over base-128 digits of the multiplicities (two
+    products past 127) against the CPU's int32 product."""
+    host = build_index(_corpus(2000, seed=19), 1, None, IndexConfig(), device="cpu")
+    gm = host.gram_matrix()
+    rng = np.random.default_rng(qmax)
+    for b in (1, 17, 40):
+        slots = torch.from_numpy(rng.integers(-1, host.n_grams, (b, qmax)).astype(np.int32))
+        slots[0, :] = 5
+        want = pc.gram_hits(slots, gm)
+        got = pc.gram_hits(slots.to(cuda), gm.to(cuda))
+        assert torch.equal(got.cpu(), want)

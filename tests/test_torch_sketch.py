@@ -411,6 +411,7 @@ def test_candidates_sketch_matches_jax(front_case, compute_short, ksb, kb,
 
 
 def _sketch_engine(eng, host, d_log2=9):
+    eng.GM_BUDGET = 0
     eng.BITMAP_BUDGET = 0
     eng.SKETCH_MIN_TERMS = 0
     eng.CAND_MIN_TERMS = 0
@@ -485,8 +486,8 @@ def test_sketch_escalation_ladder(monkeypatch):
 def test_sketch_gates_route_dense():
     """Batches the reference sends elsewhere leave the sketch: a table that
     fits BITMAP_BUDGET takes the bitmap route (weighted: no h*); a tiny
-    batch (the reference's runs route) and queries over 127 gram windows
-    (the unpacked sketch) take the dense path."""
+    batch takes the sorted runs (tiny_runs); queries over 127 gram windows
+    (the unpacked sketch, not ported) take the dense path."""
     words, weights = _rows2d(600, seed=9)
     ph = pbuild(words, 2, weights, IndexConfig(), device="cpu")
     pe = _sketch_engine(PEngine(ph), ph)
@@ -499,10 +500,19 @@ def test_sketch_gates_route_dense():
     pe.BITMAP_BUDGET = 0
     ph._bitmap_cache = None  # the table is cached per index, whatever the budget
     assert pe.search_batch(queries[:8], 0.3, 10, mode="candidates") == want[:8]
-    assert pe.last_routing["variant"] == "dense"
+    assert pe.last_routing["variant"] == "tiny_runs"
     assert pe.search_batch(queries, 0.3, 10, mode="candidates") == want
     assert pe.last_routing["variant"] == "sketch_packed"
+    # each query-length bucket of these is a tiny batch, which the tiny
+    # runs take before the sketch gate: close that gate to reach it.  The
+    # unpacked sketch needs 128 buckets of tl_pad bytes; below that budget
+    # the reference falls through to the sorted runs
+    pe.RUNS_TINY_BATCH = 0
     long_q = [q * 12 for q in queries[:10]]
+    got = pe.search_batch(long_q, 0.1, 10, mode="candidates")
+    assert pe.last_routing["variant"] == "runs"
+    assert got == pe.search_batch(long_q, 0.1, 10, mode="dense")
+    pe.SKETCH_BUDGET = _budget(ph, 10)
     got = pe.search_batch(long_q, 0.1, 10, mode="candidates")
     assert pe.last_routing["variant"] == "dense"
     assert got == pe.search_batch(long_q, 0.1, 10, mode="dense")
