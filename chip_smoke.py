@@ -36,24 +36,31 @@ order 1-3, 15, 4-6, 11-12, 7-10, 16, 18-19, 13-14, 17, 20:
      source, started together) and the native index builder with g++, and
      says whether the native builder loaded;
   3. K1 against its plain PyTorch version on random tables (every bit set
-     somewhere, bit 7 included; multiplicities summing to 31 and to 127):
-     bit-identical hits and block maxima;
+     somewhere, bit 7 included; multiplicities summing to 31 and to 127)
+     and on the edges of its bit-sliced counters (``_edge_cases``:
+     multiplicities above 1 summing to 127, a table with every bit set
+     under multiplicity 127, 127 rows of multiplicity 1, B = 1 and 33,
+     Gp = 32, Gp = 8192 with bucket collisions): bit-identical hits and
+     block maxima;
   4. main path: builds the index on the card, runs one warm-up and three
      timed batches of 512 queries, requires the bitmap_kernel + h* route and
      K1 launches; then times 64 single queries;
   5. K1 on the real table: on the whole resident table with real queries'
      counts at B = 256 and at the engine's step, bit-identical to the plain
-     version; both timed with CUDA events, beside the bound;
+     version; both timed with CUDA events, the kernel also in device time,
+     beside the bound, the listed (query, row) pairs and the integer-issue
+     time of the kernel's schedule (``_hits_issue``);
   6. exactness: 32 queries again through the dense path, requiring the
      same (score, key length) tie groups holding the same keys;
   7. K2 against its plain version on random tables (Gp 128 / 2816 / 8192,
-     B 16 / 256 / 512, sums 31 / 127): bit-identical hits;
+     B 16 / 256 / 512, sums 31 / 127) and on phase 3's edges: bit-identical
+     hits;
   8. 2-D path: builds the weighted 2-D index on the card and its packed
      sketch, runs one warm-up and three timed batches of 1,024 queries,
      requires the sketch_packed route, K2 launches and no plain calls;
   9. K2 on the real sketch table with real queries' bucket counts at
      B = 256 and at the engine's step, bit-identical to the plain version;
-     both timed with CUDA events, beside the bound;
+     timed as in phase 5;
   10. 2-D exactness: 32 of those queries again through the dense path, the
      same tie groups;
   11. the row gather against its plain version on random tables: row-major
@@ -205,6 +212,59 @@ def _random_case(gen, b: int, gp: int, ntiles: int, total: int, device):
         qcnt[r, cols] = parts.to(torch.int32)
     assert int(qcnt.sum(1).min()) == total and int(qcnt.sum(1).max()) == total
     return planes.to(device), qcnt.to(device)
+
+
+def _edge_cases(gen, device):
+    """The edges of K1/K2's bit-sliced counters, as (name, planes, qcnt):
+    multiplicities of 2 and more summing to exactly 127; a table with every
+    bit set under one row of multiplicity 127 and under 127 distinct rows of
+    multiplicity 1 (every count 127); 127 distinct rows of multiplicity 1 on
+    a random table; B = 1 and B = 33 (a ragged last group of 32 queries);
+    Gp = 32; Gp = 8192 with sketch-like bucket collisions (pairs of gram
+    slots that hash to one bucket, repeated grams, 88 windows a query)."""
+    import torch
+
+    from stringsearchlib_tpu_torch.search.candidates import query_counts
+    from stringsearchlib_tpu_torch.search.sketch import bucket_of
+
+    def table(gp):
+        return torch.randint(-128, 128, (3, gp, 512), generator=gen, dtype=torch.int8)
+
+    def cols(gp, k):
+        return torch.randperm(gp, generator=gen)[:k]
+
+    q = torch.zeros((64, 2816), dtype=torch.int32)
+    for r in range(64):
+        k = 2 + int(torch.randint(0, 20, (1,), generator=gen))
+        extra = torch.bincount(torch.randint(0, k, (127 - 2 * k,), generator=gen), minlength=k)
+        q[r, cols(2816, k)] = (2 + extra).to(torch.int32)
+    cases = [("mults_above_1_sum_127", table(2816), q)]
+    q = torch.zeros((2, 256), dtype=torch.int32)
+    q[0, 7] = 127
+    q[1, cols(256, 127)] = 1
+    cases.append(("all_bits_set_127", torch.full((2, 256, 512), -1, dtype=torch.int8), q))
+    q = torch.zeros((32, 2816), dtype=torch.int32)
+    for r in range(32):
+        q[r, cols(2816, 127)] = 1
+    cases.append(("127_rows_of_1", table(2816), q))
+    cases.append(("b1",) + _random_case(gen, 1, 2816, 3, 127, "cpu"))
+    cases.append(("b33",) + _random_case(gen, 33, 2816, 3, 31, "cpu"))
+    cases.append(("gp32",) + _random_case(gen, 64, 32, 3, 31, "cpu"))
+    pool = torch.arange(200_000, dtype=torch.int32)
+    bk = bucket_of(pool, 13)
+    order = torch.argsort(bk, stable=True)
+    sbk, spool = bk[order], pool[order]
+    shared = torch.nonzero(sbk[1:] == sbk[:-1]).flatten() + 1  # i: i-1 and i collide
+    pick = shared[torch.randint(0, shared.numel(), (256, 24), generator=gen)]
+    slots = torch.cat([spool[pick - 1], spool[pick],
+                       torch.randint(0, 200_000, (256, 40), generator=gen, dtype=torch.int32)], 1)
+    slots[:, 80:] = slots[:, :8]
+    q = query_counts(bucket_of(slots, 13), 1 << 13)
+    assert int((q > 1).sum(1).min()) > 0 and int(q.sum(1).max()) == 88
+    cases.append(("sketch_8192", table(8192), q))
+    for name, _, q in cases:
+        assert int(q.sum(1).max()) <= 127, name
+    return [(n, p.to(device), c.to(device)) for n, p, c in cases]
 
 
 def _kernel_of(name: str):
@@ -388,6 +448,32 @@ def _hits_bound(q, ntiles: int, bmax: bool):
               + b * ntiles * 4096 + (b * ntiles * 32 if bmax else 0))
     ops = 2 * int((q != 0).sum()) * ntiles * 4096
     return _bound(nbytes, ops, PEAK_INT8)
+
+
+def _hits_issue(q, ntiles: int) -> dict:
+    """K1 / K2's integer issue on ``q`` (B, Gp), beside (never in place of)
+    the bound: the instructions per 32-bit word that csrc/bitmap_hits.cu's
+    schedule issues for each query's row list - carry-save groups of 8, 4,
+    2, 1 rows of multiplicity 1 (a full adder or a half adder is two LOP3,
+    the top slice's add one), three per slice for a row of higher
+    multiplicity, 60 for the bit transpose - times the 128 words of each
+    listed row's tile slice and the tiles, over the card's INT32 rate."""
+    ones = (q == 1).sum(1).tolist()
+    more = (q > 1).sum(1).tolist()
+    sums = q.sum(1).tolist()
+    per_slice = 0
+    for n1, nm, s in zip(ones, more, sums):
+        ns = 4 if s <= 15 else 5 if s <= 31 else 6 if s <= 63 else 7
+        g8, r = divmod(int(n1), 8)
+        per_slice += (g8 * (2 * ns + 7) + (r >= 4) * (2 * ns + 1)
+                      + (r % 4 >= 2) * (2 * ns - 1) + (r % 2) * (2 * ns - 1)
+                      + int(nm) * (3 * ns - 1) + 60)
+    pairs = int(sum(ones) + sum(more))
+    return {
+        "listed_pairs": pairs,
+        "instr_per_word_row": per_slice / max(pairs, 1),
+        "issue_ms": per_slice * 128 * ntiles / _peak_int32() * 1e3,
+    }
 
 
 def _dp_bound(tokens, lengths, qtok, qlens):
@@ -1324,7 +1410,18 @@ def main() -> None:
                         f"K1 differs from its plain version: gp={gp} b={b} "
                         f"sum={total} max_abs_err={err}"
                     )
-    _phase("k1_random", t0, cases=n_cases, max_abs_err=max_err)
+    edges = _edge_cases(gen, dev)
+    for name, planes, qcnt in edges:
+        hits, bmax = bmm.bitmap_hits_bmax(qcnt, planes)
+        rh, rb = bmm.bitmap_hits_bmax_ref(qcnt, planes)
+        torch.cuda.synchronize()
+        err = max(_max_abs_err(hits, rh), _max_abs_err(bmax, rb))
+        max_err = max(max_err, err)
+        n_cases += 1
+        if err or not torch.equal(hits, rh) or not torch.equal(bmax, rb):
+            raise AssertionError(f"K1 differs from its plain version on {name}: {err}")
+    _phase("k1_random", t0, cases=n_cases, max_abs_err=max_err,
+           edges=",".join(n for n, _, _ in edges))
 
     # -- 15. K5 vs plain, random cases ---------------------------------------
     t0 = time.perf_counter()
@@ -1434,8 +1531,9 @@ def main() -> None:
         hbytes = b * table.shape[0] * bmm.TILE_LANES
         bound = _hits_bound(q, int(table.shape[0]), bmax=True)
         timing[b] = {
-            "k1_ms": k_ms, "plain_ms": p_ms, "bound_ms": bound[0], "bound_by": bound[1],
-            "table_gb_per_s": table.numel() / k_ms / 1e6,
+            "k1_ms": k_ms, "device_ms": _device_ms(lambda: bmm.bitmap_hits_bmax(q, table), 5),
+            "plain_ms": p_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            **_hits_issue(q, int(table.shape[0])),
             "hits_gb_per_s": hbytes / k_ms / 1e6,
         }
         torch.cuda.empty_cache()
@@ -1482,6 +1580,16 @@ def main() -> None:
                         f"K2 differs from its plain version: gp={gp} b={b} "
                         f"sum={total} max_abs_err={err}"
                     )
+    for name, planes, qcnt in edges:
+        hits = bmm.bitmap_hits(qcnt, planes)
+        rh = bmm.bitmap_hits_ref(qcnt, planes)
+        torch.cuda.synchronize()
+        err = _max_abs_err(hits, rh)
+        k2_err = max(k2_err, err)
+        n_cases += 1
+        if err or not torch.equal(hits, rh):
+            raise AssertionError(f"K2 differs from its plain version on {name}: {err}")
+    del edges
     _phase("k2_random", t0, cases=n_cases, max_abs_err=k2_err)
 
     # -- 8. the weighted 2-D path (bench.py index2d_1m_rows) -------------------
@@ -1585,7 +1693,9 @@ def main() -> None:
         p_ms = _cuda_ms(lambda: bmm.bitmap_hits_ref(q, inc), 1)
         bound = _hits_bound(q, int(inc.shape[0]), bmax=False)
         k2_timing[b] = {
-            "k2_ms": k_ms, "plain_ms": p_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "k2_ms": k_ms, "device_ms": _device_ms(lambda: bmm.bitmap_hits(q, inc), 5),
+            "plain_ms": p_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            **_hits_issue(q, int(inc.shape[0])),
             "hits_gb_per_s": b * tg.shape[0] / k_ms / 1e6,
             "max_bucket_mult": int(q.max()),
         }
@@ -1666,6 +1776,7 @@ def main() -> None:
         "launches": launches,
         "max_abs_err": max(max_err, real_err),
         "ms": timing[256]["k1_ms"],
+        "device_ms": timing[256]["device_ms"],
         "plain_ms": timing[256]["plain_ms"],
         "bound_ms": timing[256]["bound_ms"],
         "bound_by": timing[256]["bound_by"],
@@ -1678,6 +1789,7 @@ def main() -> None:
         "launches": k2_launches,
         "max_abs_err": max(k2_err, k2_real_err),
         "ms": k2_timing[256]["k2_ms"],
+        "device_ms": k2_timing[256]["device_ms"],
         "plain_ms": k2_timing[256]["plain_ms"],
         "bound_ms": k2_timing[256]["bound_ms"],
         "bound_by": k2_timing[256]["bound_by"],

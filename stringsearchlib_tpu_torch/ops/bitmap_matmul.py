@@ -22,9 +22,9 @@ Nothing else chooses between the two: a CUDA tensor launches the kernel or
 raises.
 
 The reference's pair dots, 31-window gate, G tiling and VMEM budget exist
-for the TPU's matrix unit and VMEM; the Hopper kernel accumulates every
-query's counts in integer registers for any Gp multiple of 32, so only the
-<= 127 count contract remains (int8 hits).
+for the TPU's matrix unit and VMEM; the Hopper kernel keeps every query's
+counts in integer registers as bit-sliced carry-save counters for any Gp
+multiple of 32, so only the <= 127 count contract remains (int8 hits).
 """
 
 from __future__ import annotations
@@ -44,8 +44,9 @@ GBLK = 2048
 SBLK_MAX = 4096
 _BMAX_BLK = 128
 _SUBS = TILE_LANES // _BMAX_BLK  # 128-term blocks per layout tile (32)
-# most nonzero qcnt columns a query can hold under the <= 127 contract
-_VMAX = 127
+# row-list width: the <= 127 contract bounds a query's nonzero qcnt columns
+# by 127, and 128 int32 keep every list 16-byte aligned
+_LIST = 128
 
 # launches of each CUDA kernel (K1 bitmap_hits_bmax, K2 bitmap_hits, and
 # the row gather G that serves K3 and K4), and calls of its plain version
@@ -90,12 +91,13 @@ def from_tile_major(planes3):
 
 def _compact_qcnt(qcnt):
     """(B, Gp) multiplicities -> zero-terminated (B, V) int32 row and
-    multiplicity lists, nonzero columns first in row order.  The <= 127
-    contract bounds a query's nonzero columns by 127."""
+    multiplicity lists, V = min(Gp, 128) (a multiple of 4, as the kernel's
+    vector loads need): the columns of multiplicity 1, then the other
+    nonzero ones, each in row order."""
     gp = qcnt.shape[1]
-    v = min(gp, _VMAX)
-    zero = (qcnt == 0).to(torch.uint8)
-    order = torch.argsort(zero, dim=1, stable=True)[:, :v]
+    v = min(gp, _LIST)
+    key = (qcnt == 0).to(torch.uint8) * 2 + (qcnt != 1).to(torch.uint8)
+    order = torch.argsort(key, dim=1, stable=True)[:, :v]
     rows = order.to(torch.int32).contiguous()
     mults = qcnt.gather(1, order).to(torch.int32).contiguous()
     return rows, mults

@@ -167,7 +167,7 @@ def build_sketch_device_packed(long_tokens, long_lengths, gram_ids32, *,
 
 def build_sketch_host(long_tokens: np.ndarray, long_lengths: np.ndarray,
                       lookup_gram_slots, gram_size: int, wide: bool, vocab,
-                      d_log2: int, tl_pad: int, tgw: int, device="cpu"):
+                      d_log2: int, tl_pad: int, tgw: int, device):
     """Sketch tables for wide strings / g = 4 (where the device pack of
     gram ids does not apply): ``tg`` from numpy gram ids, then the same
     tile-major packing on ``device``.  Same outputs as

@@ -162,3 +162,141 @@ def test_wrapper_rejects_bad_inputs(real_table):
         pbm.bitmap_hits_bmax(torch.zeros(2, gp), planes[:, :, :256])
     with pytest.raises(TypeError):
         pbm.bitmap_hits_bmax(torch.zeros(2, gp), planes.to(torch.int32))
+
+
+# -- the CUDA kernel's counting scheme, emulated on uint32 words ------------
+#
+# csrc/bitmap_hits.cu keeps, per 32-bit word of a row slice, NS bit-sliced
+# counters (slice j = bit j of the 32 counts), NS = 4..7 picked by the
+# query's multiplicity sum.  Rows of multiplicity 1 enter 8, 4, 2, 1 at a
+# time through full adders (carry-save), the rest as a ripple-carry add of
+# m * word; an 8 x 8 bit transpose per byte gives the SWAR-byte planes.
+
+
+def _fa(s, a, b):
+    return s ^ a ^ b, (s & a) | (s & b) | (a & b)
+
+
+def _carry_in(s, c, level):
+    for j in range(level, len(s) - 1):
+        s[j], c = s[j] ^ c, s[j] & c
+    s[-1] = s[-1] ^ c
+
+
+def _n_slices(total):
+    return 4 if total <= 15 else 5 if total <= 31 else 6 if total <= 63 else 7
+
+
+def _to_planes(s):
+    t = list(s) + [np.zeros_like(s[0])] * (8 - len(s))
+    for d, mask, pairs in (
+        (4, 0x0F0F0F0F, ((0, 4), (1, 5), (2, 6), (3, 7))),
+        (2, 0x33333333, ((0, 2), (1, 3), (4, 6), (5, 7))),
+        (1, 0x55555555, ((0, 1), (2, 3), (4, 5), (6, 7))),
+    ):
+        for a, b in pairs:
+            x = ((t[a] >> np.uint32(d)) ^ t[b]) & np.uint32(mask)
+            t[b] = t[b] ^ x
+            t[a] = t[a] ^ (x << np.uint32(d))
+    return t
+
+
+def _emulate_kernel(q, planes):
+    """hits and block maxima as the CUDA kernel computes them, from the
+    wrapper's own row lists (``_compact_qcnt``), all tiles at once."""
+    rows, mults = (a.numpy() for a in pbm._compact_qcnt(torch.from_numpy(q)))
+    words = np.ascontiguousarray(planes).view(np.uint32)  # (ntiles, Gp, 128)
+    nt = words.shape[0]
+    out = np.zeros((q.shape[0], nt, 8, 128), np.uint32)
+    for b in range(q.shape[0]):
+        n, n1 = int((mults[b] != 0).sum()), int((mults[b] == 1).sum())
+        assert (mults[b, :n1] == 1).all() and (mults[b, n:] == 0).all()
+        x = [words[:, r, :] for r in rows[b, :n]]
+        s = [np.zeros((nt, 128), np.uint32)] * _n_slices(int(mults[b].sum()))
+        v = 0
+        while v + 8 <= n1:
+            s[0], a1 = _fa(s[0], x[v], x[v + 1])
+            s[0], b1 = _fa(s[0], x[v + 2], x[v + 3])
+            s[1], a2 = _fa(s[1], a1, b1)
+            s[0], c1 = _fa(s[0], x[v + 4], x[v + 5])
+            s[0], d1 = _fa(s[0], x[v + 6], x[v + 7])
+            s[1], b2 = _fa(s[1], c1, d1)
+            s[2], a3 = _fa(s[2], a2, b2)
+            _carry_in(s, a3, 3)
+            v += 8
+        if v + 4 <= n1:
+            s[0], a1 = _fa(s[0], x[v], x[v + 1])
+            s[0], b1 = _fa(s[0], x[v + 2], x[v + 3])
+            s[1], a2 = _fa(s[1], a1, b1)
+            _carry_in(s, a2, 2)
+            v += 4
+        if v + 2 <= n1:
+            s[0], a1 = _fa(s[0], x[v], x[v + 1])
+            _carry_in(s, a1, 1)
+            v += 2
+        if v < n1:
+            _carry_in(s, x[v], 0)
+            v += 1
+        for r in range(v, n):  # multiplicity > 1: m * word, bit by bit of m
+            c = np.zeros_like(x[r])
+            for j in range(len(s)):
+                bj = x[r] if (int(mults[b, r]) >> j) & 1 else np.zeros_like(x[r])
+                if j < len(s) - 1:
+                    s[j], c = _fa(s[j], bj, c)
+                else:
+                    s[j] = s[j] ^ bj ^ c
+        out[b] = np.stack(_to_planes(s), axis=1)
+    hits = out.view(np.uint8).reshape(q.shape[0], nt * jbm.TILE_LANES).view(np.int8)
+    return hits, hits.reshape(q.shape[0], nt * 32, 128).max(axis=2)
+
+
+def _edge_case(case, rng):
+    gp, ntiles = 256, 2
+    planes = rng.integers(0, 256, size=(ntiles, gp, jbm.BLKB), dtype=np.uint8)
+    q = np.zeros((6, gp), np.float32)
+    if case in ("sum31", "sum127"):
+        total = 31 if case == "sum31" else 127
+        q = _qcnt(rng, 6, gp, 20, total=total)
+        q[1] = _qcnt(rng, 1, gp, min(total, 40), total=total)[0]  # mostly ones
+    elif case == "mixed":  # ones, twos and a few large multiplicities
+        for r in range(6):
+            cols = rng.choice(gp, size=9 + r, replace=False)
+            q[r, cols] = rng.choice([1, 1, 1, 2, 3, 5], size=cols.size)
+        q[4, 9:12] = [17, 33, 2]
+        q[5] = 0
+        q[5, :3] = [64, 32, 31]  # sum 127 in 3 rows of multiplicity > 1
+    elif case == "all_ones_127":  # every bit set: every count is 127
+        planes[:] = 255
+        q[0, 7] = 127
+        q[1, :127] = 1
+        q[2, 100:104] = [100, 20, 4, 3]
+        q[3:, 1:8] = 1
+    return q, planes.view(np.int8)
+
+
+@pytest.mark.parametrize("case", ["sum31", "sum127", "mixed", "all_ones_127"])
+def test_kernel_scheme_matches_plain_and_jax(case):
+    """The counting scheme of the CUDA kernel, emulated in numpy on uint32
+    words (slice counts, the carry-save schedule, the multiplicity entry,
+    the bit transpose), equals the plain version and the JAX kernel."""
+    q, planes = _edge_case(case, np.random.default_rng(len(case)))
+    assert q.sum(1).max() <= 127
+    hits, bmax = _emulate_kernel(q, planes)
+    if case == "all_ones_127":
+        assert (hits[:3] == 127).all()
+    _assert_same(_port(q, planes), hits, bmax)
+    jh, jb = jbm.bitmap_hits_bmax(
+        jnp.asarray(q, dtype=jnp.bfloat16), jnp.asarray(planes),
+        interpret=True, int8_dots=True,
+    )
+    np.testing.assert_array_equal(np.asarray(jh), hits)
+    np.testing.assert_array_equal(np.asarray(jb), bmax)
+
+
+def test_row_lists_put_ones_first():
+    q = torch.tensor([[0, 3, 1, 0, 1, 2], [1, 0, 0, 0, 0, 0]], dtype=torch.float32)
+    q = torch.nn.functional.pad(q, (0, 26))  # Gp 32
+    rows, mults = pbm._compact_qcnt(q)
+    assert rows.dtype == mults.dtype == torch.int32 and rows.shape == (2, 32)
+    assert rows[0, :4].tolist() == [2, 4, 1, 5] and mults[0, :5].tolist() == [1, 1, 3, 2, 0]
+    assert rows[1, 0] == 0 and mults[1].tolist() == [1] + [0] * 31

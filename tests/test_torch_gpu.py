@@ -52,20 +52,63 @@ def _qcnt(rng, b, gp, n_cols, total):
     return torch.from_numpy(q)
 
 
-@pytest.mark.parametrize("gp", [128, 2816])
-def test_cuda_kernel_matches_plain_version(cuda, gp):
-    rng = np.random.default_rng(gp)
+def _count_case(rng, case, gp):
+    """(B, gp) multiplicities at the edges of the kernel's bit-sliced
+    counters: random rows summing to 31 / 127; multiplicities of 2 and more
+    summing to exactly 127; 127 distinct rows of multiplicity 1; B = 1;
+    B = 33 (a ragged last group of 32 queries)."""
+    if case in ("sum31", "sum127"):
+        return _qcnt(rng, 64, gp, min(16, gp), 31 if case == "sum31" else 127)
+    if case == "mults_127":
+        q = np.zeros((40, gp), np.int32)
+        for r in range(40):
+            k = int(rng.integers(2, min(gp, 20) + 1))
+            extra = np.bincount(rng.integers(0, k, 127 - 2 * k), minlength=k)
+            q[r, rng.choice(gp, size=k, replace=False)] = 2 + extra
+        return torch.from_numpy(q)
+    if case == "ones_127":
+        q = np.zeros((16, gp), np.int32)
+        for r in range(16):
+            q[r, rng.choice(gp, size=127, replace=False)] = 1
+        return torch.from_numpy(q)
+    return _qcnt(rng, 1 if case == "b1" else 33, gp, min(24, gp), 127 if case == "b1" else 31)
+
+
+_CASES = ["sum31", "sum127", "mults_127", "ones_127", "b1", "b33"]
+
+
+@pytest.mark.parametrize("gp,case", [(gp, c) for gp in (32, 128, 2816) for c in _CASES
+                                     if gp >= 128 or c != "ones_127"])
+def test_cuda_kernel_matches_plain_version(cuda, gp, case):
+    rng = np.random.default_rng(gp + len(case))
     planes = torch.from_numpy(
         rng.integers(0, 256, size=(5, gp, pbm.BLKB), dtype=np.uint8).view(np.int8)
     ).to(cuda)
-    for total in (31, 127):
-        q = _qcnt(rng, 64, gp, 16, total).to(cuda)
-        launches = pbm.K1_LAUNCHES
-        hits, bmax = pbm.bitmap_hits_bmax(q, planes)
-        rh, rb = pbm.bitmap_hits_bmax_ref(q, planes)
-        torch.cuda.synchronize()
-        assert pbm.K1_LAUNCHES == launches + 1
-        assert torch.equal(hits, rh) and torch.equal(bmax, rb)
+    q = _count_case(rng, case, gp).to(cuda)
+    assert int(q.sum(1).max()) <= 127
+    launches = pbm.K1_LAUNCHES
+    hits, bmax = pbm.bitmap_hits_bmax(q, planes)
+    rh, rb = pbm.bitmap_hits_bmax_ref(q, planes)
+    torch.cuda.synchronize()
+    assert pbm.K1_LAUNCHES == launches + 1
+    assert torch.equal(hits, rh) and torch.equal(bmax, rb)
+
+
+def test_cuda_kernels_every_bit_set(cuda):
+    """A table with every bit set: every count is the query's sum, 127 at
+    the contract's edge, through each way a row enters the counters."""
+    planes = torch.full((2, 256, pbm.BLKB), -1, dtype=torch.int8, device=cuda)
+    q = torch.zeros((4, 256), dtype=torch.int32)
+    q[0, 7] = 127
+    q[1, :127] = 1
+    q[2, 100:104] = torch.tensor([100, 20, 4, 3])
+    q[3, 3:12] = 1
+    q = q.to(cuda)
+    hits, bmax = pbm.bitmap_hits_bmax(q, planes)
+    torch.cuda.synchronize()
+    want = q.sum(1).to(torch.int8)[:, None]
+    assert torch.equal(hits, want.expand_as(hits)) and torch.equal(bmax, want.expand_as(bmax))
+    assert torch.equal(pbm.bitmap_hits(q, planes), hits)
 
 
 def test_build_on_cuda_matches_cpu(cuda):
@@ -108,21 +151,48 @@ def test_search_on_cuda_matches_cpu(cuda, kb):
         assert engines[1].search(q, 0.3, 20) == engines[0].search(q, 0.3, 20)
 
 
-@pytest.mark.parametrize("gp,ntiles", [(128, 5), (8192, 3)])
-def test_cuda_k2_matches_plain_version(cuda, gp, ntiles):
-    rng = np.random.default_rng(gp + 1)
+@pytest.mark.parametrize("gp,ntiles,case", [(128, 5, "sum31"), (128, 5, "sum127"),
+                                           (8192, 3, "sum31"), (8192, 3, "sum127"),
+                                           (32, 2, "sum31"), (2816, 2, "mults_127"),
+                                           (2816, 2, "ones_127"), (2816, 2, "b1"),
+                                           (2816, 2, "b33")])
+def test_cuda_k2_matches_plain_version(cuda, gp, ntiles, case):
+    rng = np.random.default_rng(gp + 1 + len(case))
     planes = torch.from_numpy(
         rng.integers(0, 256, size=(ntiles, gp, pbm.BLKB), dtype=np.uint8).view(np.int8)
     ).to(cuda)
-    for total in (31, 127):
-        q = _qcnt(rng, 96, gp, 24, total).to(cuda)
-        launches = (pbm.K2_LAUNCHES, pbm.K1_LAUNCHES)
-        hits = pbm.bitmap_hits(q, planes)
-        want = pbm.bitmap_hits_ref(q, planes)
-        torch.cuda.synchronize()
-        assert (pbm.K2_LAUNCHES, pbm.K1_LAUNCHES) == (launches[0] + 1, launches[1])
-        assert torch.equal(hits, want)
-        assert torch.equal(hits, pbm.bitmap_hits_bmax(q, planes)[0])
+    q = _count_case(rng, case, gp).to(cuda)
+    launches = (pbm.K2_LAUNCHES, pbm.K1_LAUNCHES)
+    hits = pbm.bitmap_hits(q, planes)
+    want = pbm.bitmap_hits_ref(q, planes)
+    torch.cuda.synchronize()
+    assert (pbm.K2_LAUNCHES, pbm.K1_LAUNCHES) == (launches[0] + 1, launches[1])
+    assert torch.equal(hits, want)
+    assert torch.equal(hits, pbm.bitmap_hits_bmax(q, planes)[0])
+
+
+def test_cuda_k2_sketch_bucket_collisions(cuda):
+    """Gp = 8192 bucket counts as the sketch builds them: gram slots that
+    hash to one bucket and repeated grams give multiplicities above 1."""
+    from stringsearchlib_tpu_torch.search.sketch import bucket_of
+
+    rng = np.random.default_rng(8192)
+    pool = torch.arange(200_000, dtype=torch.int32)
+    bk = bucket_of(pool, 13)
+    order = torch.argsort(bk, stable=True)
+    sbk, spool = bk[order], pool[order]
+    shared = torch.nonzero(sbk[1:] == sbk[:-1]).flatten() + 1
+    pick = shared[torch.from_numpy(rng.integers(0, shared.numel(), (64, 24)))]
+    slots = torch.cat([spool[pick - 1], spool[pick],
+                       torch.from_numpy(rng.integers(0, 200_000, (64, 40)).astype(np.int32))], 1)
+    slots[:, 80:] = slots[:, :8]
+    q = pc.query_counts(bucket_of(slots, 13), 1 << 13)
+    assert int((q > 1).sum(1).min()) > 0 and int(q.sum(1).max()) <= 127
+    planes = torch.from_numpy(
+        rng.integers(0, 256, size=(2, 8192, pbm.BLKB), dtype=np.uint8).view(np.int8))
+    want = pbm.bitmap_hits_ref(q, planes)
+    got = pbm.bitmap_hits(q.to(cuda), planes.to(cuda))
+    assert torch.equal(got.cpu(), want)
 
 
 def test_sketch_route_on_cuda_matches_cpu(cuda):

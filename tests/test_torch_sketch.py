@@ -171,7 +171,7 @@ def test_host_build_matches_jax(cfg):
     pd = ph.device
     inc_p, tg_p = psk.build_sketch_host(
         pd.long_tokens.numpy(), pd.long_lengths.numpy(), ph.lookup_gram_slots,
-        cfg.gram_size, cfg.wide, ph.vocab, 7, tlp, tgw,
+        cfg.gram_size, cfg.wide, ph.vocab, 7, tlp, tgw, device="cpu",
     )
     np.testing.assert_array_equal(tg_p.numpy(), tg_j)
     np.testing.assert_array_equal(inc_p.numpy(), want)
