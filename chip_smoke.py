@@ -82,12 +82,14 @@ order 1-3, 15, 4-6, 11-12, 7-10, 16, 18-19, 13-14, 17, 20:
      BITMAP_KB_LANES 0 against 65536, with equal results;
   14. wide_100k_g2: 256 queries; route bitmap_kernel, no h*, no block_sel,
      K2 launches; 32 queries against the dense path;
-  15. K5 against its plain version on random cases: a 20k-term short tier
-     at B = 256, a 2M-term long tier at B = 1, wide int32 tokens, W = 200
-     at Qp 32 and 130, Qp 128 over W 16; qlen 0, 1 and Qp; bit-identical,
-     timed with CUDA events beside the bound (operations at the card's
-     INT32 rate), and every form of the kernel that holds the shapes timed
-     beside the one the wrapper picks;
+  15. K5 against its plain version on random cases (``K5_CASES``): a
+     20k-term short tier at B = 256, a 2M-term long tier at B = 1, wide
+     int32 tokens, W = 200 at Qp 32, 33, 65 (uint8 and int32), 129, 130
+     and 257, Qp 128 over W 16; qlen 0, 1, Qp - 1 and Qp; bit-identical,
+     timed with CUDA events and in device time beside the least-work bound
+     (operations at the card's INT32 rate) and the DP-cell bound, with
+     the launch plan; phase 2 prints ptxas's registers and spills of each
+     K5 instance;
   16. K6 against its plain version on random (B, s_cap) indices into the
      2-D index's gram_terms, out of range on both sides, sorted and
      unsorted, int64 and int32, one and two tables; bit-identical, timed
@@ -96,14 +98,15 @@ order 1-3, 15, 4-6, 11-12, 7-10, 16, 18-19, 13-14, 17, 20:
   17. wide_100k_g3: 256 queries; route runs, K5 and K6 launches, no plain
      calls; 32 queries against the dense path; q/s, a traced batch, and K5
      and K6 on the very operands a batch hands them (recorded) against
-     their plain versions, per call and device time, K5's forms;
+     their plain versions, per call and device time, K5's plan;
   18. tiny runs on the 2-D index: 64 single queries and 8 batches of 8 from
      name and description rows; at least one pass tiny_runs, K6 launches,
      no plain calls; results equal the dense path's; single-query p50/p90
      on the route and on the dense path;
   19. brute tier on the 2-D index: 16 queries of 1-3 characters; K5
      launches, no plain calls; results equal the same queries recomputed
-     with the plain DP; K5 on the long tier at B = 16 and B = 1;
+     with the plain DP; K5 on the long tier at B = 16 and B = 1,
+     bit-identical to the plain version, per call and device time;
   20. dense_1m: 1M product names; 512-query batches and 32 single queries,
      each first pass routed matmul with h*; 32 queries against the dense
      path; q/s and single p50/p90.
@@ -117,6 +120,7 @@ Usage:  python3 chip_smoke.py [--keys N] [--rows2d N] [--rows2d-bitmap N]
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import functools
 import json
 import math
@@ -282,14 +286,13 @@ def _kernel_of(name: str):
     return "k1" if ("<true>" in name or "ILb1E" in name) else "k2"
 
 
-def _trace(run) -> dict:
-    """One traced call of ``run`` under torch.profiler: device time by
-    kernel name (top 8) and by aten op (top 10), K1's and K2's shares, and
-    the device's busy and idle share of the call's wall time (kernel
-    intervals merged)."""
+def _device_spans(run):
+    """``run`` once under torch.profiler: (the profiler, the call's wall
+    microseconds, [(start, end, kernel name)] of its device events)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
@@ -300,6 +303,15 @@ def _trace(run) -> dict:
         for e in prof.events()
         if str(e.device_type).endswith("CUDA")
     ]
+    return prof, wall_us, spans
+
+
+def _trace(run) -> dict:
+    """One traced call of ``run`` under torch.profiler: device time by
+    kernel name (top 8) and by aten op (top 10), K1's and K2's shares, and
+    the device's busy and idle share of the call's wall time (kernel
+    intervals merged)."""
+    prof, wall_us, spans = _device_spans(run)
     if not spans:
         return {"device_time": "not measured (no device events in the trace)"}
     by_name: dict = {}
@@ -345,9 +357,44 @@ def _trace(run) -> dict:
 def _device_ms(fn, reps: int = 20):
     """Device-busy milliseconds per call of ``fn`` over ``reps`` calls, from
     a torch.profiler trace (kernel intervals merged): the device's share of
-    a call, without the host time a wrapper spends around its launch."""
-    busy = _trace(lambda: [fn() for _ in range(reps)]).get("device_busy_ms")
-    return None if busy is None else busy / reps
+    a call, without the host time a wrapper spends around its launch.  None
+    (not measured) when the trace holds fewer kernels than calls: the
+    profiler dropped some, and the sum would undercount."""
+    t = _trace(lambda: [fn() for _ in range(reps)])
+    busy = t.get("device_busy_ms")
+    if busy is None or t["n_kernel_launches"] < reps:
+        return None
+    return busy / reps
+
+
+# cycles of the spin kernel that queued calls wait behind (~50 ms at the
+# H100's 1.98 GHz): far longer than the host takes to enqueue them
+SPIN_CYCLES = 100_000_000
+
+
+def _queued_ms(fn, reps: int = 20):
+    """Device milliseconds per call of ``fn``: ``reps`` calls enqueued while
+    a spin kernel holds the card, timed with CUDA events from the spin's end
+    to the last call's end, so the host's time between launches is hidden
+    and what remains is the device's work, back to back.  It needs no
+    profiler: late in a long process torch.profiler drops the first kernels
+    of a trace and can misstate the durations of the rest.  None (not
+    measured) when the spin ended before the host had enqueued every call,
+    or when ``fn`` waits for the device."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    late = start.query()  # the spin had ended: host gaps would count
+    torch.cuda.synchronize()
+    return None if late else start.elapsed_time(end) / reps
 
 
 def _max_abs_err(a, b, rows: int = 32) -> int:
@@ -478,16 +525,30 @@ def _hits_issue(q, ntiles: int) -> dict:
 
 def _dp_bound(tokens, lengths, qtok, qlens):
     """K5: tokens, lengths, queries read once and the (B, N) int32 counts
-    written once; five 32-bit integer operations per DP cell (two min, two
-    add, one compare) at the card's INT32 rate, over each pair's
-    min(qlen, Qp) x min(len, W) cells."""
-    w = tokens.shape[1]
-    cells = float(qlens.clamp(0, qtok.shape[1]).double().sum()) * float(
-        lengths.clamp(0, w).double().sum())
+    written once; the least integer work for the function at the card's
+    INT32 rate: per pair, min(len, W) term characters, each costing the
+    cheaper of Sellers' DP column (five 32-bit operations - two min, two
+    add, one compare - per query character, 5m) and a step of Myers'
+    bit-vector recurrence over ceil(m / 32) words, m = min(qlen, Qp).  The
+    step is counted as listed in csrc/dp_match.cu's ``column``, one LOP3
+    for each three-input logic term: per word Xv, Xh (and, add, xor-or),
+    Ph, Mh, the two shifted deltas, Pv and Mv (10), Eq | Mh-in in every
+    word above the lowest (1), and once per step the score's two updates
+    and the running minimum (3): 11 ceil(m / 32) + 2.  Returns (ms, what
+    bounds it, the DP-cell bound: 5 operations per cell of every pair,
+    ms)."""
+    import torch
+
+    w, qp = tokens.shape[1], qtok.shape[1]
+    m = qlens.clamp(0, qp).double()
+    per_char = torch.minimum(5 * m, 11 * torch.ceil(m / 32) + 2)
+    chars = float(lengths.clamp(0, w).double().sum())
     nbytes = (tokens.numel() * tokens.element_size() + 4 * lengths.numel()
               + 4 * qtok.numel() + 4 * qlens.numel()
               + 4 * qtok.shape[0] * tokens.shape[0])
-    return _bound(nbytes, 5 * cells, _peak_int32())
+    bound, by = _bound(nbytes, float(per_char.sum()) * chars, _peak_int32())
+    cell = _bound(nbytes, 5 * float(m.sum()) * chars, _peak_int32())[0]
+    return bound, by, cell
 
 
 def _gather_bound(idx, t_len: int, n_tables: int = 1):
@@ -881,63 +942,82 @@ def _wide_g2_route(threshold, limit, dev):
     }
 
 
-# K5's random cases: (name, N terms, width W, B queries, Qp, wide tokens)
+# K5's random cases: (name, N terms, width W, B queries, Qp, wide tokens);
+# the qlens include Qp and Qp - 1, so the W = 200 cases put queries on both
+# sides of each word-count boundary (32/33, 64/65, 128/129)
 K5_CASES = (
     ("short_tier_b256", 20_000, 8, 256, 32, False),
     ("long_tier_b1", 2_000_000, 32, 1, 32, False),
     ("wide_int32_b64", 100_000, 16, 64, 16, True),
     ("w200_qp32_b16", 20_000, 200, 16, 32, False),
+    ("w200_qp33_b16", 20_000, 200, 16, 33, False),
+    ("w200_qp65_b16", 20_000, 200, 16, 65, False),
+    ("w200_qp65_int32_b16", 20_000, 200, 16, 65, True),
+    ("w200_qp129_b16", 5_000, 200, 16, 129, False),
     ("w200_qp130_b4", 5_000, 200, 4, 130, False),
+    ("w200_qp257_b4", 5_000, 200, 4, 257, False),  # the scratch kernel
     ("qp128_w16_b64", 20_000, 16, 64, 128, False),
 )
 
 
-def _k5_forms(args, want) -> dict:
-    """Every form of K5 that holds ``args``' shapes (the state along the
-    query or the term in registers, or the scratch column), each checked
-    bit for bit against ``want`` and timed with CUDA events; "picked" is
-    the form ``dp_match`` launches."""
+def _k5_case(gen, n: int, w: int, b: int, qp: int, wide: bool, dev):
+    """Random K5 operands over a 6-letter alphabet: lengths 0..W (0 and W
+    included), qlens Qp, 0, 1, Qp - 1, then random; padding 0."""
     import torch
+
+    lo = 0x4E00 if wide else ord("a")
+    lengths = torch.randint(0, w + 1, (n,), generator=gen, dtype=torch.int32)
+    lengths[:2] = torch.tensor([0, w])
+    tokens = torch.randint(lo, lo + 6, (n, w), generator=gen, dtype=torch.int32)
+    tokens[torch.arange(w)[None, :] >= lengths[:, None]] = 0
+    qlens = torch.randint(0, qp + 1, (b,), generator=gen, dtype=torch.int32)
+    qlens[: min(b, 4)] = torch.tensor([qp, 0, 1, qp - 1])[: min(b, 4)]
+    qtok = torch.randint(lo, lo + 6, (b, qp), generator=gen, dtype=torch.int32)
+    qtok[torch.arange(qp)[None, :] >= qlens[:, None]] = 0
+    if not wide:
+        tokens = tokens.to(torch.uint8)
+    return [t.to(dev) for t in (tokens, lengths, qtok, qlens)]
+
+
+def _k5_instances(log: str) -> dict:
+    """{instance ("uint8 nw=1 qc=16", ..., "int32 scratch"): registers and
+    spill bytes} of csrc/dp_match.cu's kernels from ptxas's log, read by
+    hits_ab._ptxas."""
+    import re
+
+    import hits_ab
+
+    res = {}
+    for fn, (regs, stores, loads) in hits_ab._ptxas(log).items():
+        k = re.search(r"dp_match(_words)?_kernelI([hi])(?:Li(\d+)ELi(\d+)E)?", fn)
+        if k:
+            name = "uint8" if k.group(2) == "h" else "int32"
+            name += " scratch" if k.group(1) else f" nw={k.group(3)} qc={k.group(4)}"
+            res[name] = {"registers": regs, "spill_stores": stores, "spill_loads": loads}
+    return res
+
+
+def _k5_plan(args) -> dict:
+    """The launch ``dp_match`` picks for ``args`` (ops.dp_match.plan)."""
     from stringsearchlib_tpu_torch.ops import dp_match as k5
 
     tokens, _, qtok, _ = args
-    qp, w = int(qtok.shape[1]), int(tokens.shape[1])
-    forms = {"picked": k5.pick_form(qp, w)}
-    for form in ("query", "term", "scratch"):
-        if form != "scratch" and (qp if form == "query" else w) > 64:
-            continue
-        got = k5.launch_form(*args, form)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"K5's {form} form differs from its plain version")
-        forms[f"{form}_ms"] = _cuda_ms(lambda: k5.launch_form(*args, form), 5)
-    return forms
+    return k5.plan(int(qtok.shape[1]), int(tokens.shape[0]), int(qtok.shape[0]))
 
 
 def _k5_random(gen, dev):
     """K5 against its plain version on random cases at the shapes the routes
-    give it: a 20k-term short tier at B = 256, a 2M-term long tier at B = 1,
-    wide int32 tokens, W = 200 with Qp 32 and with Qp 130 (past the
-    register forms), Qp 128 over W 16; qlen 0, 1 and Qp in every case, each
-    form of the kernel that holds the shapes.  Returns (max_abs_err, cases,
-    timing)."""
+    give it (K5_CASES): a 20k-term short tier at B = 256, a 2M-term long
+    tier at B = 1, wide int32 tokens, W = 200 with queries on both sides of
+    each word-count boundary and past 8 words (the scratch kernel), Qp 128
+    over W 16; qlen 0, 1, Qp - 1 and Qp in every case.  Returns
+    (max_abs_err, cases, timing)."""
     import torch
     from stringsearchlib_tpu_torch.ops import dp_match as k5
 
     err, timing = 0, {}
     for name, n, w, b, qp, wide in K5_CASES:
-        lo = 0x4E00 if wide else ord("a")
-        lengths = torch.randint(0, w + 1, (n,), generator=gen, dtype=torch.int32)
-        lengths[:2] = torch.tensor([0, w])
-        tokens = torch.randint(lo, lo + 6, (n, w), generator=gen, dtype=torch.int32)
-        tokens[torch.arange(w)[None, :] >= lengths[:, None]] = 0
-        qlens = torch.randint(0, qp + 1, (b,), generator=gen, dtype=torch.int32)
-        qlens[: min(b, 3)] = torch.tensor([qp, 0, 1])[: min(b, 3)]
-        qtok = torch.randint(lo, lo + 6, (b, qp), generator=gen, dtype=torch.int32)
-        qtok[torch.arange(qp)[None, :] >= qlens[:, None]] = 0
-        if not wide:
-            tokens = tokens.to(torch.uint8)
-        args = [t.to(dev) for t in (tokens, lengths, qtok, qlens)]
+        args = _k5_case(gen, n, w, b, qp, wide, dev)
         got = k5.dp_match(*args)
         want = k5.dp_match_ref(*args)
         torch.cuda.synchronize()
@@ -945,13 +1025,14 @@ def _k5_random(gen, dev):
         err = max(err, e)
         if e or not torch.equal(got, want):
             raise AssertionError(f"K5 differs from its plain version: {name} max_abs_err={e}")
-        bound, by = _dp_bound(*args)
+        bound, by, cell = _dp_bound(*args)
         timing[name] = {
             "n": n, "w": w, "b": b, "qp": qp, "wide": wide,
             "ms": _cuda_ms(lambda: k5.dp_match(*args), 5),
+            "device_ms": _queued_ms(lambda: k5.dp_match(*args), 5),
             "plain_ms": _cuda_ms(lambda: k5.dp_match_ref(*args), 1),
-            "bound_ms": bound, "bound_by": by,
-            "forms": _k5_forms(args, want),
+            "bound_ms": bound, "bound_by": by, "dp_cell_bound_ms": cell,
+            "plan": _k5_plan(args),
         }
         del got, want, args
         torch.cuda.empty_cache()
@@ -986,7 +1067,7 @@ def _gather_case(idx, tables, fills, what: str) -> dict:
         "ms": _cuda_ms(lambda: k6.gather_tables(idx, tables, fills), 10),
         "plain_ms": _cuda_ms(lambda: k6.gather_tables_ref(idx, tables, fills), 3),
         "take_ms": _cuda_ms(lambda: torch.take(tables[0], idc), 10),
-        "device_ms": _device_ms(lambda: k6.gather_tables(idx, tables, fills)),
+        "device_ms": _queued_ms(lambda: k6.gather_tables(idx, tables, fills)),
         "plain_device_ms": _device_ms(lambda: k6.gather_tables_ref(idx, tables, fills), 5),
         "take_device_ms": _device_ms(lambda: torch.take(tables[0], idc)),
         "bound_ms": bound, "bound_by": by,
@@ -1046,7 +1127,7 @@ def _route_kernels(engine, run) -> dict:
     candidate pass of ``run()`` hands to the short tier's ``dp_match`` and
     to the postings expansion's ``gather_tables``, recorded as they are
     passed; each kernel against its plain version, bit for bit, with
-    CUDA-event and profiler times, the bound, and K5's other forms."""
+    CUDA-event and profiler times, the bounds, and K5's launch plan."""
     import torch
     from stringsearchlib_tpu_torch.ops import dp_match as k5
     from stringsearchlib_tpu_torch.search import candidates
@@ -1062,7 +1143,7 @@ def _route_kernels(engine, run) -> dict:
     torch.cuda.synchronize()
     if not torch.equal(kd, pd):
         raise AssertionError("K5 differs from its plain version on the route's shapes")
-    bound, by = _dp_bound(*dp_args)
+    bound, by, cell = _dp_bound(*dp_args)
     tokens, qtok = dp_args[0], dp_args[2]
     k5_info = {
         "calls_per_batch": len(dp_calls),
@@ -1070,10 +1151,10 @@ def _route_kernels(engine, run) -> dict:
         "qp": int(qtok.shape[1]), "token_dtype": str(tokens.dtype).replace("torch.", ""),
         "ms": _cuda_ms(lambda: k5.dp_match(*dp_args), 10),
         "plain_ms": _cuda_ms(lambda: k5.dp_match_ref(*dp_args), 3),
-        "device_ms": _device_ms(lambda: k5.dp_match(*dp_args)),
+        "device_ms": _queued_ms(lambda: k5.dp_match(*dp_args)),
         "plain_device_ms": _device_ms(lambda: k5.dp_match_ref(*dp_args), 5),
-        "bound_ms": bound, "bound_by": by,
-        "forms": _k5_forms(dp_args, pd),
+        "bound_ms": bound, "bound_by": by, "dp_cell_bound_ms": cell,
+        "plan": _k5_plan(dp_args),
     }
     idx, tables, fills = k6_calls[0]
     k6_info = _gather_case(idx, tables, fills, "the route's expansion")
@@ -1215,13 +1296,11 @@ def _tiny_runs_2d(engine, words, threshold, limit):
     }
 
 
-def _brute_2d(engine, words, threshold, limit, dev):
-    """16 queries of 1-3 characters on the 1M-row 2-D index: the brute tier,
-    K5 over the whole 2M-term long tier.  Results equal the same queries
-    recomputed with the plain DP; K5 timed at B = 16 and B = 1 on the long
-    tier against the plain version at B = 1."""
+def _brute_queries(engine, words, dev):
+    """N_BRUTE queries of 1-3 characters cut from ``words`` (random.Random
+    13), and their (N_BRUTE, 8) int32 tokens and lengths on ``dev`` as the
+    brute tier's DP takes them."""
     import torch
-    from stringsearchlib_tpu_torch.ops import dp_match as k5
 
     rng = random.Random(13)
     queries = []
@@ -1232,6 +1311,36 @@ def _brute_2d(engine, words, threshold, limit, dev):
         q = w[j : j + k]
         if engine._normalize_query(q)[1] == k:
             queries.append(q)
+    qtok = torch.zeros((N_BRUTE, 8), dtype=torch.int32)
+    qlens = torch.zeros(N_BRUTE, dtype=torch.int32)
+    for i, q in enumerate(queries):
+        qnorm, qlen = engine._normalize_query(q)
+        qtok[i, :qlen] = torch.from_numpy(qnorm[:qlen].astype("int32"))
+        qlens[i] = qlen
+    return queries, qtok.to(dev), qlens.to(dev)
+
+
+def _k5_ref_rows(args, rows: int = 4):
+    """The plain version ``rows`` queries at a time (its (B, N, W + 1)
+    working set stays a few GB on a 2M-term tier)."""
+    import torch
+    from stringsearchlib_tpu_torch.ops import dp_match as k5
+
+    tokens, lengths, qtok, qlens = args
+    return torch.cat([k5.dp_match_ref(tokens, lengths, qtok[i : i + rows], qlens[i : i + rows])
+                      for i in range(0, qtok.shape[0], rows)])
+
+
+def _brute_2d(engine, words, threshold, limit, dev):
+    """16 queries of 1-3 characters on the 1M-row 2-D index: the brute tier,
+    K5 over the whole 2M-term long tier.  Results equal the same queries
+    recomputed with the plain DP; K5 on the long tier at B = 16 and B = 1
+    bit-identical to the plain version, timed per call and in device time
+    beside the bounds."""
+    import torch
+    from stringsearchlib_tpu_torch.ops import dp_match as k5
+
+    queries, qtok, qlens = _brute_queries(engine, words, dev)
     engine.search_batch(queries[:2], threshold, limit)  # warm-up
     _reset_counts()
     t1 = time.perf_counter()
@@ -1246,31 +1355,29 @@ def _brute_2d(engine, words, threshold, limit, dev):
     _same_groups(got, want, "brute tier: K5 vs the plain DP")
     _check_results(got, queries, threshold * 0.4 * (1 - 1e-6), limit)
     di = engine.host.device
-    qtok = torch.zeros((N_BRUTE, 8), dtype=torch.int32)
-    qlens = torch.zeros(N_BRUTE, dtype=torch.int32)
-    for i, q in enumerate(queries):
-        qnorm, qlen = engine._normalize_query(q)
-        qtok[i, :qlen] = torch.from_numpy(qnorm[:qlen].astype("int32"))
-        qlens[i] = qlen
-    qtok, qlens = qtok.to(dev), qlens.to(dev)
     long_args = (di.long_tokens, di.long_lengths)
-    k16 = k5.dp_match(*long_args, qtok, qlens)
-    one = (qtok[:1], qlens[:1])
-    k1_, p1 = k5.dp_match(*long_args, *one), k5.dp_match_ref(*long_args, *one)
-    torch.cuda.synchronize()
-    if not torch.equal(k1_, p1) or not torch.equal(k16[:1], p1):
-        raise AssertionError("K5 differs from its plain version on the long tier")
-    b16 = _dp_bound(*long_args, qtok, qlens)
-    b1 = _dp_bound(*long_args, *one)
+    timing = {}
+    for name, qa in (("k5_b16", (qtok, qlens)), ("k5_b1", (qtok[:1], qlens[:1]))):
+        args = (*long_args, *qa)
+        kd, pd = k5.dp_match(*args), _k5_ref_rows(args)
+        torch.cuda.synchronize()
+        if not torch.equal(kd, pd):
+            raise AssertionError(f"K5 differs from its plain version on the long tier ({name})")
+        del kd, pd
+        bound, by, cell = _dp_bound(*args)
+        timing[name] = {
+            "ms": _cuda_ms(lambda: k5.dp_match(*args), 10),
+            "device_ms": _queued_ms(lambda: k5.dp_match(*args), 10),
+            "plain_ms": _cuda_ms(lambda: k5.dp_match_ref(*args), 1) if name == "k5_b1" else None,
+            "bound_ms": bound, "bound_by": by, "dp_cell_bound_ms": cell,
+            "plan": _k5_plan(args),
+        }
+        torch.cuda.empty_cache()
     return {
         "queries": queries, "counts": counts, "batch_ms": batch_ms,
         "long_tier_shape": list(di.long_tokens.shape),
         "mean_results": sum(len(k) for k, _ in got) / len(got),
-        "k5_b16": {"ms": _cuda_ms(lambda: k5.dp_match(*long_args, qtok, qlens), 5),
-                   "bound_ms": b16[0], "bound_by": b16[1]},
-        "k5_b1": {"ms": _cuda_ms(lambda: k5.dp_match(*long_args, *one), 10),
-                  "plain_ms": _cuda_ms(lambda: k5.dp_match_ref(*long_args, *one), 2),
-                  "bound_ms": b1[0], "bound_by": b1[1]},
+        **timing,
     }
 
 
@@ -1380,12 +1487,28 @@ def main() -> None:
     from stringsearchlib_tpu_torch.search.engine import SearchEngine
     from stringsearchlib_tpu_torch.search.sketch import bucket_of
 
-    sos = kernels.build_kernels()
-    for name in sos:
-        kernels.lib(name)
-    native = nativelib.get_native() is not None
+    import hits_ab
+    from stringsearchlib_tpu_torch.ops import dp_match as k5
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # ptxas's registers and spills of K5's instances, compiled beside
+        # the package's kernels
+        ptxas = pool.submit(hits_ab._nvcc_jobs, {"dp_match": os.path.join(
+            _ROOT, "stringsearchlib_tpu_torch", "csrc", "dp_match.cu")},
+            os.path.join(_ROOT, "build", "ptxas"), ("cubin",))
+        sos = kernels.build_kernels()
+        for name in sos:
+            kernels.lib(name)
+        native = nativelib.get_native() is not None
+        k5_ptxas = _k5_instances(ptxas.result()["dp_match"]["ptxas"])
+    want = {f"{t} nw={nw} qc={qc}" for t in ("uint8", "int32") for nw in k5._WORDS
+            for qc in (k5._LANES // nw, 1)} | {"uint8 scratch", "int32 scratch"}
+    spills = {k: v for k, v in k5_ptxas.items()
+              if "nw=" in k and (v["spill_stores"] or v["spill_loads"])}
+    if set(k5_ptxas) != want or spills:
+        raise AssertionError(f"K5's register instances: {k5_ptxas}")
     _phase("build", t0, kernel_sos=",".join(os.path.relpath(p, _ROOT) for p in sos.values()),
-           native_builder=native)
+           native_builder=native, k5_ptxas=json.dumps(k5_ptxas, separators=(",", ":")))
 
     # -- 3. K1 vs plain, random tables -------------------------------------
     t0 = time.perf_counter()
@@ -1728,6 +1851,7 @@ def main() -> None:
     t0 = time.perf_counter()
     brute = _brute_2d(engine2, words2, threshold, limit, dev)
     print(json.dumps({"brute_2d": brute, "card": smi}), flush=True)
+    k5_long = {k: brute[k] for k in ("k5_b16", "k5_b1")}
     _phase("brute_2d", t0, k5_launches=brute["counts"]["k5"])
     del engine2, host2, words2
     torch.cuda.empty_cache()
@@ -1819,6 +1943,9 @@ def main() -> None:
         "plain_ms": k5_real["plain_ms"],
         "bound_ms": k5_real["bound_ms"],
         "bound_by": k5_real["bound_by"],
+        "dp_cell_bound_ms": k5_real["dp_cell_bound_ms"],
+        "long_tier": k5_long,
+        "ptxas": k5_ptxas,
         "library_ms": None,
     }, {
         "name": "gather_tables",

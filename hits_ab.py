@@ -6,9 +6,10 @@ A body is a CUDA source with the package's C interface: the entries
 ``bitmap_hits_bmax_launch`` (K1) and ``bitmap_hits_launch`` (K2), or, given
 as ``NAME=PATH@SYM``, ``SYM_bmax`` and ``SYM_hits`` with the same
 arguments.  The package's own source is always the body ``new``; another,
-such as the parent commit's source, is named on the command line:
+such as an earlier commit's source (d82b9b2: the body before the
+bit-sliced counters), is named on the command line:
 
-    git show HEAD~1:stringsearchlib_tpu_torch/csrc/bitmap_hits.cu > dist/old.cu
+    git show d82b9b2:stringsearchlib_tpu_torch/csrc/bitmap_hits.cu > dist/old.cu
     python3 hits_ab.py --body old=dist/old.cu
 
 Every body is compiled with the package's nvcc flags (one process per
@@ -60,22 +61,25 @@ def _log(*a) -> None:
     print(f"[{time.perf_counter() - _T0:7.1f}s]", *a, flush=True)
 
 
-def _nvcc_jobs(paths: dict) -> dict:
-    """{tag: source} -> {tag: (so, cubin, ptxas log)}, every compile started
-    together; raises when one fails."""
+def _nvcc_jobs(paths: dict, out_dir: str = _BUILD, kinds=("so", "cubin")) -> dict:
+    """{tag: source} -> {tag: (so, cubin, ptxas log)} in ``out_dir`` (the
+    ``kinds`` asked for), every compile started together; raises when one
+    fails."""
     nvcc = "/usr/local/cuda/bin/nvcc"
     flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
-    os.makedirs(_BUILD, exist_ok=True)
+    os.makedirs(out_dir, exist_ok=True)
     jobs = []
     for tag, src in paths.items():
-        so = os.path.join(_BUILD, f"lib{tag}.so")
-        cubin = os.path.join(_BUILD, f"{tag}.cubin")
-        jobs.append((tag, "so", so, subprocess.Popen(
-            [nvcc, *flags, "-shared", "-Xcompiler", "-fPIC", "-o", so, src],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-        jobs.append((tag, "cubin", cubin, subprocess.Popen(
-            [nvcc, *flags, "-Xptxas", "-v", "-cubin", "-o", cubin, src],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        so = os.path.join(out_dir, f"lib{tag}.so")
+        cubin = os.path.join(out_dir, f"{tag}.cubin")
+        if "so" in kinds:
+            jobs.append((tag, "so", so, subprocess.Popen(
+                [nvcc, *flags, "-shared", "-Xcompiler", "-fPIC", "-o", so, src],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        if "cubin" in kinds:
+            jobs.append((tag, "cubin", cubin, subprocess.Popen(
+                [nvcc, *flags, "-Xptxas", "-v", "-cubin", "-o", cubin, src],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     out: dict = {tag: {} for tag in paths}
     for tag, kind, path, proc in jobs:
         stdout, stderr = proc.communicate()

@@ -10,11 +10,13 @@ and every width W is exact.
 
 On a CUDA tensor the wrapper launches ``csrc/dp_match.cu``, the
 counterpart of the TPU kernel ``tools/experimental/dp_pallas.py``
-(``_dp_call``): one thread per (query, term) pair with Sellers' DP held in
-registers along the shorter of the two static bounds (Qp or W, up to 64),
-else in a global scratch column.  On a CPU tensor it runs the plain version
-``dp_match_ref``.  Nothing else chooses between the two: a CUDA tensor
-launches the kernel or raises.
+(``_dp_call``): Myers' bit-vector recurrence, one thread per term advancing
+a chunk of queries by each term character, the state in ceil(Qp / 32)
+32-bit words per query (registers up to 8 words, a global scratch past
+that) and the match masks built in shared memory within the launch;
+``plan`` says which instance and chunk it takes.  On a CPU tensor it runs
+the plain version ``dp_match_ref``.  Nothing else chooses between the two:
+a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -29,10 +31,12 @@ K5_LAUNCHES = 0
 K5_REF_CALLS = 0
 
 _BIG = 1 << 30
-# register state bounds the kernel is compiled for
-_STATES = (8, 16, 32, 64)
-# bytes of the scratch column buffer the widest form may hold
-_SCRATCH_BYTES = 256 << 20
+# mask words per table row: a chunk's queries x words per query
+_LANES = 16
+# words per query the register kernel is compiled for
+_WORDS = (1, 2, 4, 8)
+# bytes of the global scratch that holds the vectors of queries over 8 words
+_STATE_BYTES = 64 << 20
 _THREADS = 128
 
 
@@ -66,57 +70,25 @@ def dp_match_ref(tokens, lengths, qtokens, qlen):
     return qlen.to(torch.int32)[:, None] - mismatch
 
 
-def _state_bound(n: int):
-    for s in _STATES:
-        if n <= s:
-            return s
-    return None
-
-
-def pick_form(qp: int, w: int) -> str:
-    """The kernel form ``dp_match`` launches for queries padded to ``qp``
-    and terms of width ``w``: the state in registers along the shorter
-    static bound, the query ("query") or the term ("term"), while one of
-    them fits a register bound, else a global scratch column along the
-    query ("scratch")."""
-    s_q, s_w = _state_bound(qp), _state_bound(w)
-    if s_q is not None and (s_w is None or qp <= w):
-        return "query"
-    return "term" if s_w is not None else "scratch"
-
-
-def launch_form(tokens, lengths, qtokens, qlen, form: str):
-    """One launch of the kernel in ``form`` ("query", "term" or "scratch")
-    on operands ``dp_match`` has checked: (B, N) int32.  Counts nothing;
-    ``dp_match`` is the wrapper that picks the form and counts its
-    launches."""
-    n, w = tokens.shape
-    b, qp = qtokens.shape
-    out = torch.empty((b, n), dtype=torch.int32, device=tokens.device)
-    if n == 0 or b == 0:
-        return out
-    scratch, threads = out, 0
-    if form == "scratch":
-        s = 0
-        fit = max(_SCRATCH_BYTES // (4 * (qp + 1)) // _THREADS, 1) * _THREADS
-        threads = min(fit, -(-n // _THREADS) * _THREADS)
-        scratch = torch.empty(threads * (qp + 1), dtype=torch.int32,
-                              device=tokens.device)
-    else:
-        s = _state_bound(qp if form == "query" else w)
-        if s is None:
-            raise ValueError(f"no register bound holds the {form} form at "
-                             f"Qp {qp}, W {w}")
-    with torch.cuda.device(tokens.device):
-        stream = torch.cuda.current_stream(tokens.device).cuda_stream
-        err = _lib("dp_match").dp_match_launch(
-            tokens.data_ptr(), lengths.data_ptr(), qtokens.data_ptr(),
-            qlen.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, w, b, qp,
-            tokens.element_size(), int(form != "term"), s, threads, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"dp_match kernel launch failed: cuda error {err}")
-    return out
+def plan(qp: int, n: int = 0, b: int = _LANES) -> dict:
+    """How ``dp_match`` launches K5 for ``b`` queries padded to ``qp`` over
+    ``n`` terms: ``words`` = ceil(qp / 32) (at least 1); ``nw``, the
+    register instance (the least of 1, 2, 4, 8 that holds ``words``, else 0
+    for the scratch kernel); ``qc``, the queries of a block's chunk: 16 / nw,
+    or 1 when ``b`` fills at most an eighth of such a chunk, or is 1 (a
+    thread's registers then hold one query's state, so three times as many
+    blocks fit an SM, which outweighs reading the terms once per query;
+    1 in the scratch kernel); ``threads``, the scratch kernel's grid of
+    threads (0 otherwise)."""
+    words = max(1, -(-qp // 32))
+    nw = next((s for s in _WORDS if words <= s), 0)
+    if nw == 0:
+        fit = max(_STATE_BYTES // (8 * words * _THREADS), 1) * _THREADS
+        threads = min(fit, -(-max(n, 1) // _THREADS) * _THREADS)
+        return {"nw": 0, "qc": 1, "words": words, "threads": threads}
+    full = _LANES // nw
+    qc = 1 if b <= max(1, full // 8) else full
+    return {"nw": nw, "qc": qc, "words": words, "threads": 0}
 
 
 def dp_match(tokens, lengths, qtokens, qlen):
@@ -149,8 +121,22 @@ def dp_match(tokens, lengths, qtokens, qlen):
             raise ValueError(f"{name} must be contiguous")
     if not tokens.is_contiguous():
         raise ValueError("tokens must be contiguous")
+    out = torch.empty((b, n), dtype=torch.int32, device=tokens.device)
     if n == 0 or b == 0:
-        return torch.empty((b, n), dtype=torch.int32, device=tokens.device)
-    out = launch_form(tokens, lengths, qtokens, qlen, pick_form(qp, w))
+        return out
+    p = plan(qp, n, b)
+    scratch = out
+    if p["nw"] == 0:
+        scratch = torch.empty(2 * p["words"] * p["threads"], dtype=torch.int32,
+                              device=tokens.device)
+    with torch.cuda.device(tokens.device):
+        stream = torch.cuda.current_stream(tokens.device).cuda_stream
+        err = _lib("dp_match").dp_match_launch(
+            tokens.data_ptr(), lengths.data_ptr(), qtokens.data_ptr(),
+            qlen.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, w, b, qp,
+            tokens.element_size(), p["nw"], p["qc"], p["threads"], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"dp_match kernel launch failed: cuda error {err}")
     K5_LAUNCHES += 1
     return out

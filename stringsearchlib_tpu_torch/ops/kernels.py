@@ -36,7 +36,8 @@ ARGTYPES = {
     },
     "dp_match": {
         # tokens, lengths, qtokens, qlens, out, scratch, n, w, b, qp,
-        # token bytes, orientation, state bound, scratch threads, stream
+        # token bytes, words instance (0: scratch kernel), queries per
+        # chunk, scratch threads, stream
         "dp_match_launch": [_P] * 6 + [_I] * 8 + [_P],
     },
     "gather_tables": {

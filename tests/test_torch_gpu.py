@@ -302,6 +302,7 @@ def _dp_case(rng, n, w, b, qp, wide):
     lengths = rng.integers(0, w + 1, size=n)
     lengths[:3] = [0, w, w + 5][: min(n, 3)]
     tokens[np.arange(w)[None, :] >= lengths[:, None]] = 0
+    lengths[3:4] = -1
     qtok = rng.integers(lo, lo + alpha, size=(b, qp))
     qlens = rng.integers(0, qp + 1, size=b)
     qlens[: min(b, 3)] = [0, 1, qp][: min(b, 3)]
@@ -312,12 +313,15 @@ def _dp_case(rng, n, w, b, qp, wide):
 
 
 @pytest.mark.parametrize("n,w,b,qp,wide", [
-    (3000, 8, 64, 16, False),     # short tier: state along the term
-    (2000, 40, 16, 16, False),    # state along the query
-    (1500, 100, 8, 80, True),     # wide tokens, over 64 on both sides: scratch
-    (700, 200, 4, 130, False),    # over 64 on both sides: the scratch form
-    (2000, 16, 8, 128, False),    # long queries over a short tier: term side
+    (3000, 8, 64, 16, False),     # short tier, 8-byte rows
+    (2000, 40, 16, 16, False),    # 40-byte rows: 4-byte loads
+    (1500, 100, 8, 80, True),     # wide tokens, three words per query
+    (700, 200, 4, 130, False),    # five words per query
+    (2000, 16, 8, 128, False),    # long queries over a short tier
     (1, 5, 1, 1, False),
+    (3000, 32, 1, 8, False),      # chunks of one query: one word
+    (1500, 100, 1, 40, True),     # two words, wide tokens
+    (700, 200, 1, 130, False),    # the 8-word instance
 ])
 def test_cuda_dp_match_matches_plain_version(cuda, n, w, b, qp, wide):
     args = _dp_case(np.random.default_rng(n + w), n, w, b, qp, wide)
@@ -328,18 +332,31 @@ def test_cuda_dp_match_matches_plain_version(cuda, n, w, b, qp, wide):
     assert torch.equal(got.cpu(), pdp.dp_match_ref(*args))
 
 
-@pytest.mark.parametrize("n,w,b,qp", [(3000, 8, 64, 32), (2000, 16, 16, 16),
-                                      (2000, 16, 8, 128)])
-def test_cuda_dp_match_every_form_matches_plain_version(cuda, n, w, b, qp):
-    args = _dp_case(np.random.default_rng(n + qp), n, w, b, qp, False)
-    want = pdp.dp_match_ref(*args)
+@pytest.mark.parametrize("qp,m,wide", [
+    (33, (32, 33), False),     # one word / two words
+    (65, (64, 65), False),     # two words / three, in the 4-word instance
+    (129, (128, 129), False),  # four words / five, in the 8-word instance
+    (257, (256, 257), False),  # eight words / the scratch kernel
+    (65, (32, 33, 64, 65), True),
+])
+def test_cuda_dp_match_word_boundaries(cuda, qp, m, wide):
+    """Queries on both sides of each word-count boundary against W = 200
+    terms (a few over-long, one of negative length), uint8 and int32."""
+    args = list(_dp_case(np.random.default_rng(qp + wide), 600, 200, 12, qp, wide))
+    rng = np.random.default_rng(qp)
+    qlens = args[3].numpy().copy()
+    qlens[3:3 + len(m)] = m
+    qlens[-1] = qp + 4  # qlen past Qp counts Qp characters
+    qtok = args[2].numpy().copy()
+    lo = 0x4E00 if wide else 1
+    for i in range(3, 3 + len(m)):
+        qtok[i, : m[i - 3]] = rng.integers(lo, lo + 6, size=m[i - 3])
+    args[2], args[3] = torch.from_numpy(qtok), torch.from_numpy(qlens)
     launches = pdp.K5_LAUNCHES
-    forms = ["scratch"] + [f for f, s in (("query", qp), ("term", w)) if s <= 64]
-    for form in forms:
-        got = pdp.launch_form(*(a.to(cuda) for a in args), form)
-        torch.cuda.synchronize()
-        assert torch.equal(got.cpu(), want), form
-    assert pdp.K5_LAUNCHES == launches
+    got = pdp.dp_match(*(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    assert pdp.K5_LAUNCHES == launches + 1
+    assert torch.equal(got.cpu(), pdp.dp_match_ref(*args))
 
 
 def test_cuda_dp_match_contracts(cuda):
