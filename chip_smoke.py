@@ -15,14 +15,14 @@ Drives the port's candidate paths on one CUDA card, through
     product name + gram-rich description, weights [1.0, 0.4]), whose packed
     bitmap is over budget, so it routes to the packed bucket sketch through
     the hand-written K2 kernel; on the same index, single queries and
-    batches of 8 through the sorted runs (``tiny_runs``: the postings
-    expansion K6) and 1-3 character queries through the brute tier (the
+    batches of 8 through the sorted runs (``tiny_runs``: K6's postings
+    expansion) and 1-3 character queries through the brute tier (the
     edit-distance DP K5 over the whole long tier);
   * the same 2-D layout at 500k rows, whose packed bitmap fits its budget:
     the weighted bitmap route, K2, ``block_hmax`` and the blockmax finish;
   * ``bench.py``'s ``wide_100k_g2`` (100k CJK/accented keys, gram size 2):
     K2 and the dense-hits finish; and ``wide_100k_g3`` (gram size 3): the
-    sorted runs, K6 and K5;
+    sorted runs, K6's postings expansion and K5;
   * ``bench.py``'s ``dense_1m`` (1M product names): the gram-matrix route
     (``torch._int_mm``) with the h* finish, batches and single queries.
 
@@ -34,7 +34,9 @@ order 1-3, 15, 4-6, 11-12, 7-10, 16, 18-19, 13-14, 17, 20:
      limit;
   2. build: compiles the CUDA sources in csrc/ with nvcc (one process per
      source, started together) and the native index builder with g++, and
-     says whether the native builder loaded;
+     says whether the native builder loaded; prints ptxas's registers and
+     spills of K5's instances and of K6's expansion kernel, and fails on a
+     spill in K5's register instances or in the expansion kernel;
   3. K1 against its plain PyTorch version on random tables (every bit set
      somewhere, bit 7 included; multiplicities summing to 31 and to 127)
      and on the edges of its bit-sliced counters (``_edge_cases``:
@@ -88,21 +90,25 @@ order 1-3, 15, 4-6, 11-12, 7-10, 16, 18-19, 13-14, 17, 20:
      and 257, Qp 128 over W 16; qlen 0, 1, Qp - 1 and Qp; bit-identical,
      timed with CUDA events and in device time beside the least-work bound
      (operations at the card's INT32 rate) and the DP-cell bound, with
-     the launch plan; phase 2 prints ptxas's registers and spills of each
-     K5 instance;
-  16. K6 against its plain version on random (B, s_cap) indices into the
-     2-D index's gram_terms, out of range on both sides, sorted and
-     unsorted, int64 and int32, one and two tables; bit-identical, timed
-     per call and in device time beside ``torch.take`` on the clamped
-     indices and the bound;
-  17. wide_100k_g3: 256 queries; route runs, K5 and K6 launches, no plain
-     calls; 32 queries against the dense path; q/s, a traced batch, and K5
-     and K6 on the very operands a batch hands them (recorded) against
-     their plain versions, per call and device time, K5's plan;
+     the launch plan;
+  16. K6's gather against its plain version on random (B, s_cap) indices
+     into the 2-D index's gram_terms, out of range on both sides, sorted
+     and unsorted, int64 and int32, one and two tables; bit-identical,
+     timed per call and in device time beside ``torch.take`` on the
+     clamped indices and the bound (distinct 32-byte sectors);
+  17. wide_100k_g3: 256 queries; route runs, K5 and postings-expansion
+     launches, no plain calls; 32 queries against the dense path; q/s, a
+     traced batch, and K5 and the expansion on the very operands a batch
+     hands them (recorded) against their plain versions, per call and
+     device time, K5's plan; the expansion in turns with the old path (the
+     CSR expand, then K6's gather, also checked there) with its launches
+     per call and its bound;
   18. tiny runs on the 2-D index: 64 single queries and 8 batches of 8 from
-     name and description rows; at least one pass tiny_runs, K6 launches,
-     no plain calls; results equal the dense path's; single-query p50/p90
-     on the route and on the dense path;
+     name and description rows; at least one pass tiny_runs, expansion
+     launches, no plain calls; results equal the dense path's; single-query
+     p50/p90 on the route and on the dense path; the expansion as in 17 on
+     the operands of a description single, a batch of 8 description
+     queries (tiny_runs) and the dense comparison's ``gather_hits``;
   19. brute tier on the 2-D index: 16 queries of 1-3 characters; K5
      launches, no plain calls; results equal the same queries recomputed
      with the plain DP; K5 on the long tier at B = 16 and B = 1,
@@ -111,8 +117,9 @@ order 1-3, 15, 4-6, 11-12, 7-10, 16, 18-19, 13-14, 17, 20:
      each first pass routed matmul with h*; 32 queries against the dense
      path; q/s and single p50/p90.
 
-The line before the last is a JSON object describing the six kernels; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object describing the six TPU kernels'
+ports and the postings expansion; the last line is ``{"ok": true,
+"device": {...}}``.
 
 Usage:  python3 chip_smoke.py [--keys N] [--rows2d N] [--rows2d-bitmap N]
 """
@@ -274,12 +281,13 @@ def _edge_cases(gen, device):
 def _kernel_of(name: str):
     """'k1' / 'k2' for the two instantiations of csrc/bitmap_hits.cu's
     kernel (demangled or mangled name), 'g' for csrc/gather_rows.cu's, 'k5'
-    for csrc/dp_match.cu's, 'k6' for csrc/gather_tables.cu's, else None."""
+    for csrc/dp_match.cu's, 'k6' for either of csrc/gather_tables.cu's,
+    else None."""
     if "gather_rows_kernel" in name:
         return "g"
     if "dp_match_kernel" in name:
         return "k5"
-    if "gather_tables_kernel" in name:
+    if "gather_tables_kernel" in name or "expand_postings_kernel" in name:
         return "k6"
     if "bitmap_hits_kernel" not in name:
         return None
@@ -460,6 +468,7 @@ def _reset_counts() -> None:
     bmm.K1_LAUNCHES = bmm.K1_REF_CALLS = bmm.K2_LAUNCHES = bmm.K2_REF_CALLS = 0
     bmm.G_LAUNCHES = bmm.G_REF_CALLS = 0
     k5.K5_LAUNCHES = k5.K5_REF_CALLS = k6.K6_LAUNCHES = k6.K6_REF_CALLS = 0
+    k6.EXPAND_LAUNCHES = 0
 
 
 def _counts() -> dict:
@@ -473,6 +482,7 @@ def _counts() -> dict:
         "gather": bmm.G_LAUNCHES, "gather_plain": bmm.G_REF_CALLS,
         "k5": k5.K5_LAUNCHES, "k5_plain": k5.K5_REF_CALLS,
         "k6": k6.K6_LAUNCHES, "k6_plain": k6.K6_REF_CALLS,
+        "expand": k6.EXPAND_LAUNCHES,
     }
 
 
@@ -552,35 +562,61 @@ def _dp_bound(tokens, lengths, qtok, qlens):
 
 
 def _gather_bound(idx, t_len: int, n_tables: int = 1):
-    """K6: the indices read once, each distinct in-range table word read
-    once per table, the (B, C) outputs written once per table."""
+    """K6's gather: the indices read once, each distinct 32-byte sector
+    that in-range indices touch read once per table (a sector is the least
+    the card reads from device memory), the (B, C) outputs written once per
+    table."""
     import torch
 
     valid = idx[(idx >= 0) & (idx < t_len)]
-    distinct = int(torch.unique(valid).numel()) if valid.numel() else 0
+    sectors = int(torch.unique(valid // 8).numel()) if valid.numel() else 0
     nbytes = (idx.numel() * idx.element_size()
-              + n_tables * (4 * distinct + 4 * idx.numel()))
+              + n_tables * (32 * sectors + 4 * idx.numel()))
     return _bound(nbytes)
 
 
-class _plain_dp:
-    """Every binding of ``dp_match`` in the port's search modules set to the
-    plain version for the ``with`` block: the same search recomputed
-    without K5."""
+def _expand_bound(gram_ptr, slots, s_cap: int):
+    """The postings expansion: the (B, Qmax) slots read once, two gram_ptr
+    words per present slot, each distinct 32-byte sector of the rows'
+    posting ranges read once, the (B, s_cap) int32 output written once.
+    Returns (ms, what bounds it, sectors)."""
+    import numpy as np
+
+    sl = slots.cpu().numpy()
+    ptr = gram_ptr.cpu().numpy().astype(np.int64)
+    present = sl[(sl >= 0) & (sl < ptr.size - 1)]
+    u = np.unique(present)
+    st, en = ptr[u], ptr[u + 1]
+    keep = en > st
+    first, last = st[keep] // 8, (en[keep] - 1) // 8
+    order = np.argsort(first, kind="stable")
+    sectors, reach = 0, -1  # the union of the ranges' sector intervals
+    for f, l in zip(first[order].tolist(), last[order].tolist()):
+        if l > reach:
+            sectors += l - max(f, reach + 1) + 1
+            reach = l
+    nbytes = (4 * sl.size + 8 * present.size + 32 * sectors
+              + 4 * sl.shape[0] * s_cap)
+    return (*_bound(nbytes), sectors)
+
+
+class _bound_as:
+    """Every binding ``name`` of the modules ``mods`` set to ``fn`` for the
+    ``with`` block (the port's search modules import their kernels' entries
+    by name)."""
+
+    def __init__(self, mods, name: str, fn):
+        self.mods, self.name, self.fn = mods, name, fn
 
     def __enter__(self):
-        from stringsearchlib_tpu_torch.ops import dp_match as k5
-        from stringsearchlib_tpu_torch.search import candidates, editdist, engine
-
-        self.mods = (candidates, editdist, engine)
-        self.saved = [m.dp_match for m in self.mods]
+        self.saved = [getattr(m, self.name) for m in self.mods]
         for m in self.mods:
-            m.dp_match = k5.dp_match_ref
+            setattr(m, self.name, self.fn)
         return self
 
     def __exit__(self, *exc):
         for m, f in zip(self.mods, self.saved):
-            m.dp_match = f
+            setattr(m, self.name, f)
 
 
 def _timed_batches(engine, queries, threshold, limit, reps=REPS):
@@ -1074,6 +1110,91 @@ def _gather_case(idx, tables, fills, what: str) -> dict:
     }
 
 
+def _kernels_per_call(fn, reps: int = 5) -> dict:
+    """Kernel launches per call of ``fn`` from one torch.profiler trace of
+    ``reps`` calls: the runtime's launch calls on the host and the kernels
+    the device ran (the profiler can drop device kernels late in a long
+    process, so both are given)."""
+    prof, _, spans = _device_spans(lambda: [fn() for _ in range(reps)])
+    host = sum(1 for e in prof.events()
+               if e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    return {"host_launch_calls": host / reps, "device_kernels": len(spans) / reps}
+
+
+def _in_turns(sides: dict, timer) -> dict:
+    """``timer`` on each of ``sides`` ({name: fn}) in order, then in reverse
+    (old, new, new, old): {name: its two readings}."""
+    names = list(sides)
+    res = {n: [] for n in names}
+    for n in names + names[::-1]:
+        res[n].append(timer(sides[n]))
+    return res
+
+
+def _mean(xs):
+    xs = [x for x in xs if x is not None]
+    return sum(xs) / len(xs) if xs else None
+
+
+def _old_expansion(gram_ptr, gram_terms, slots, s_cap: int, fill: int):
+    """The expansion as the port ran it before ``expand_postings``: the
+    eager CSR expand ``posting_index``, then K6's gather kernel at its
+    indices."""
+    from stringsearchlib_tpu_torch.ops import vgather as k6
+
+    idx = k6.posting_index(gram_ptr, slots, s_cap)
+    return k6.gather_tables(idx, [gram_terms], [fill])[0]
+
+
+def _expand_case(args, what: str, reps: int = 20) -> dict:
+    """The postings expansion on one recorded operand set (gram_ptr,
+    gram_terms, slots, s_cap, fill): the kernel bit-identical to
+    ``expand_postings_ref`` and to the old path (the CSR expand
+    ``posting_index``, then the gather kernel); kernel and old path timed in
+    turns with CUDA events per call (host work included) and in device time
+    (calls queued behind a spin kernel); launches per expansion; the plain
+    version's time; the bound."""
+    import torch
+    from stringsearchlib_tpu_torch.ops import vgather as k6
+
+    ptr, terms, slots, s_cap, fill = args
+
+    def new():
+        return k6.expand_postings(*args)
+
+    def old():
+        return _old_expansion(*args)
+
+    n0 = (k6.EXPAND_LAUNCHES, k6.K6_REF_CALLS)
+    got = new()
+    if (k6.EXPAND_LAUNCHES - n0[0], k6.K6_REF_CALLS - n0[1]) != (1, 0):
+        raise AssertionError(f"the expansion did not launch its kernel once: {what}")
+    want = k6.expand_postings_ref(*args)
+    was = old()
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if err or not torch.equal(got, want) or not torch.equal(was, want):
+        raise AssertionError(f"the expansion differs from its plain version: {what} "
+                             f"max_abs_err={err}")
+    del got, want, was
+    torch.cuda.empty_cache()
+    bound, by, sectors = _expand_bound(ptr, slots, s_cap)
+    ms = _in_turns({"old": old, "new": new}, lambda f: _cuda_ms(f, reps))
+    dev_ms = _in_turns({"old": old, "new": new}, lambda f: _queued_ms(f, reps))
+    return {
+        "shape": [int(slots.shape[0]), int(slots.shape[1]), int(s_cap)],
+        "present_slots": int((slots >= 0).sum()), "posting_sectors": sectors,
+        "postings": int(terms.shape[0]), "max_abs_err": err,
+        "ms": _mean(ms["new"]), "device_ms": _mean(dev_ms["new"]),
+        "old_path_ms": _mean(ms["old"]), "old_path_device_ms": _mean(dev_ms["old"]),
+        "turns_ms": ms, "turns_device_ms": dev_ms,
+        "plain_ms": _cuda_ms(lambda: k6.expand_postings_ref(*args), 3),
+        "launches_per_expansion": {"new": _kernels_per_call(new),
+                                   "old": _kernels_per_call(old)},
+        "bound_ms": bound, "bound_by": by,
+    }
+
+
 def _k6_random(gram_terms, dev):
     """K6 against its plain version on random (B, s_cap) indices into a
     real ``gram_terms`` (the 2-D index's), out of range on both sides:
@@ -1125,16 +1246,19 @@ def _recorded_calls(mod, name: str, run) -> list:
 def _route_kernels(engine, run) -> dict:
     """K5 and K6 at a runs route's real shapes: the operands that the first
     candidate pass of ``run()`` hands to the short tier's ``dp_match`` and
-    to the postings expansion's ``gather_tables``, recorded as they are
-    passed; each kernel against its plain version, bit for bit, with
-    CUDA-event and profiler times, the bounds, and K5's launch plan."""
+    to ``expand_postings``, recorded as they are passed; each kernel
+    against its plain version, bit for bit, with CUDA-event and device
+    times, the bounds, and K5's launch plan; the expansion against the old
+    path (``_expand_case``), and the gather kernel at the old path's
+    indices."""
     import torch
     from stringsearchlib_tpu_torch.ops import dp_match as k5
+    from stringsearchlib_tpu_torch.ops import vgather as k6
     from stringsearchlib_tpu_torch.search import candidates
 
     k6_calls = []
     dp_calls = _recorded_calls(candidates, "dp_match", lambda: k6_calls.extend(
-        _recorded_calls(candidates, "gather_tables", run)))
+        _recorded_calls(candidates, "expand_postings", run)))
     if not dp_calls or not k6_calls:
         raise AssertionError(f"the route made {len(dp_calls)} short-tier DP and "
                              f"{len(k6_calls)} expansion calls")
@@ -1156,10 +1280,13 @@ def _route_kernels(engine, run) -> dict:
         "bound_ms": bound, "bound_by": by, "dp_cell_bound_ms": cell,
         "plan": _k5_plan(dp_args),
     }
-    idx, tables, fills = k6_calls[0]
-    k6_info = _gather_case(idx, tables, fills, "the route's expansion")
-    k6_info["calls_per_batch"] = len(k6_calls)
-    return {"k5": k5_info, "k6": k6_info}
+    ptr, terms, slots, s_cap, fill = k6_calls[0]
+    idx = k6.posting_index(ptr, slots, s_cap)
+    k6_info = _gather_case(idx, [terms], [fill], "the route's expansion indices")
+    del idx
+    expand = _expand_case(k6_calls[0], "the wide g3 route")
+    expand["calls_per_batch"] = len(k6_calls)
+    return {"k5": k5_info, "k6": k6_info, "expand": expand}
 
 
 def _wide_g3_route(threshold, limit, dev):
@@ -1192,7 +1319,8 @@ def _wide_g3_route(threshold, limit, dev):
     routing = passes[0][2]
     if routing.get("variant") != "runs":
         raise AssertionError(f"wide_100k_g3 did not take the sorted runs: {routing}")
-    if counts["k5"] <= 0 or counts["k6"] <= 0 or counts["k5_plain"] or counts["k6_plain"]:
+    if (counts["k5"] <= 0 or counts["expand"] <= 0 or counts["k5_plain"]
+            or counts["k6_plain"]):
         raise AssertionError(f"wide_100k_g3 counts {counts}")
     _check_results(results, queries, threshold, limit)
     _check_exact(engine, queries[:32], results[:32], threshold, limit)
@@ -1236,15 +1364,10 @@ def _spied(engine, queries, run):
     return out, variants
 
 
-def _tiny_runs_2d(engine, words, threshold, limit):
-    """64 single queries and 8 batches of 8 on the 1M-row 2-D index, half
-    from name rows and half from description rows: passes whose posting
-    mass fits RUNS_TINY_LANES take tiny_runs (no table streamed), the rest
-    the sketch.  Results equal the dense path's; single-query times on the
-    route against the dense path (which the port took before the runs
-    route existed)."""
-    import torch
-
+def _tiny_queries(words):
+    """The 2-D phase's queries (random.Random(11)): 64 singles, name and
+    description rows in turn, and 8 batches of 4 name and 4 description
+    queries."""
     import bench
 
     rng = random.Random(11)
@@ -1254,7 +1377,44 @@ def _tiny_runs_2d(engine, words, threshold, limit):
         return [bench._mutate(rng, words[2 * rng.randrange(half) + kind]) for _ in range(n)]
 
     singles = [q for pair in zip(draw(0, 32), draw(1, 32)) for q in pair]
-    batches = [draw(0, 4) + draw(1, 4) for _ in range(N_SMALL_BATCHES)]
+    return singles, [draw(0, 4) + draw(1, 4) for _ in range(N_SMALL_BATCHES)]
+
+
+def _expansion_operands(engine, allq, desc, threshold, limit):
+    """The arguments ``expand_postings`` is handed by the dense path's
+    ``gather_hits`` over ``allq`` (its first chunk), by a single query
+    ``desc[0]`` and by a batch ``desc[:8]`` on tiny_runs, recorded: ({name:
+    args}, the dense path's results, its expansion calls)."""
+    from stringsearchlib_tpu_torch.search import candidates, overlap
+
+    dense = []
+    dense_calls = _recorded_calls(overlap, "expand_postings", lambda: dense.extend(
+        engine.search_batch(allq, threshold, limit, batch_bucket=512, mode="dense")))
+    single_calls = _recorded_calls(candidates, "expand_postings",
+                                   lambda: engine.search(desc[0], threshold, limit))
+    batch_calls = _recorded_calls(candidates, "expand_postings",
+                                  lambda: engine.search_batch(desc[:8], threshold, limit))
+    if not (dense_calls and single_calls and batch_calls):
+        raise AssertionError(f"recorded expansions: dense {len(dense_calls)}, single "
+                             f"{len(single_calls)}, batch of 8 {len(batch_calls)}")
+    ops = {"desc_single": single_calls[0], "desc_batch_of_8": batch_calls[0],
+           "dense_gather_hits": dense_calls[0]}
+    return ops, dense, len(dense_calls)
+
+
+def _tiny_runs_2d(engine, words, threshold, limit):
+    """64 single queries and 8 batches of 8 on the 1M-row 2-D index, half
+    from name rows and half from description rows: passes whose posting
+    mass fits RUNS_TINY_LANES take tiny_runs (no table streamed), the rest
+    the sketch.  Results equal the dense path's; single-query times on the
+    route against the dense path (which the port took before the runs
+    route existed).  The postings expansion on the operands recorded from
+    one description single and one batch of 8 description queries on
+    tiny_runs, and from the dense comparison's ``gather_hits``
+    (``_expand_case``)."""
+    import torch
+
+    singles, batches = _tiny_queries(words)
     engine.search(singles[0], threshold, limit)  # warm-up
     _reset_counts()
     got_single, r_single = _spied(
@@ -1267,11 +1427,17 @@ def _tiny_runs_2d(engine, words, threshold, limit):
     counts = _counts()
     if "tiny_runs" not in v_single + v_batches:
         raise AssertionError(f"no pass took tiny_runs: {v_single} {v_batches}")
-    if counts["k6"] <= 0 or counts["k6_plain"] or counts["k5_plain"] or counts["k2_plain"]:
+    if (counts["expand"] <= 0 or counts["k6_plain"] or counts["k5_plain"]
+            or counts["k2_plain"]):
         raise AssertionError(f"tiny_runs_2d counts {counts}")
     flat = [r for b in got_batches for r in b]
     allq = singles + [q for b in batches for q in b]
-    dense = engine.search_batch(allq, threshold, limit, batch_bucket=512, mode="dense")
+    ops, dense, n_dense = _expansion_operands(engine, allq, singles[1::2], threshold, limit)
+    expand = {name: _expand_case(a, name, reps=5 if name.startswith("dense") else 20)
+              for name, a in ops.items()}
+    expand["dense_gather_hits"]["calls"] = n_dense
+    del ops
+    torch.cuda.empty_cache()
     _same_groups(got_single + flat, dense, "tiny_runs_2d vs dense")
     _check_results(got_single + flat, allq, threshold * 0.4 * (1 - 1e-6), limit)
     _, route_ms = _single_ms(engine, singles, threshold, limit)
@@ -1293,6 +1459,7 @@ def _tiny_runs_2d(engine, words, threshold, limit):
             "dense": {"p50": _pct(dense_ms, 0.5), "p90": _pct(dense_ms, 0.9)},
         },
         "traced_single_desc": _trace(lambda: engine.search(singles[1], threshold, limit)),
+        "expand": expand,
     }
 
 
@@ -1350,7 +1517,11 @@ def _brute_2d(engine, words, threshold, limit, dev):
     counts = _counts()
     if counts["k5"] <= 0 or counts["k5_plain"]:
         raise AssertionError(f"brute_2d counts {counts}")
-    with _plain_dp():
+    from stringsearchlib_tpu_torch.search import candidates, editdist
+    from stringsearchlib_tpu_torch.search import engine as enginemod
+
+    # the same search recomputed without K5
+    with _bound_as((candidates, editdist, enginemod), "dp_match", k5.dp_match_ref):
         want = [engine.search_batch([q], threshold, limit)[0] for q in queries]
     _same_groups(got, want, "brute tier: K5 vs the plain DP")
     _check_results(got, queries, threshold * 0.4 * (1 - 1e-6), limit)
@@ -1491,24 +1662,33 @@ def main() -> None:
     from stringsearchlib_tpu_torch.ops import dp_match as k5
 
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        # ptxas's registers and spills of K5's instances, compiled beside
-        # the package's kernels
-        ptxas = pool.submit(hits_ab._nvcc_jobs, {"dp_match": os.path.join(
-            _ROOT, "stringsearchlib_tpu_torch", "csrc", "dp_match.cu")},
+        # ptxas's registers and spills of K5's instances and of K6's
+        # expansion, compiled beside the package's kernels
+        ptxas = pool.submit(hits_ab._nvcc_jobs, {
+            name: os.path.join(_ROOT, "stringsearchlib_tpu_torch", "csrc", f"{name}.cu")
+            for name in ("dp_match", "gather_tables")},
             os.path.join(_ROOT, "build", "ptxas"), ("cubin",))
         sos = kernels.build_kernels()
         for name in sos:
             kernels.lib(name)
         native = nativelib.get_native() is not None
-        k5_ptxas = _k5_instances(ptxas.result()["dp_match"]["ptxas"])
+        logs = ptxas.result()
+    k5_ptxas = _k5_instances(logs["dp_match"]["ptxas"])
     want = {f"{t} nw={nw} qc={qc}" for t in ("uint8", "int32") for nw in k5._WORDS
             for qc in (k5._LANES // nw, 1)} | {"uint8 scratch", "int32 scratch"}
     spills = {k: v for k, v in k5_ptxas.items()
               if "nw=" in k and (v["spill_stores"] or v["spill_loads"])}
     if set(k5_ptxas) != want or spills:
         raise AssertionError(f"K5's register instances: {k5_ptxas}")
+    expand_ptxas = [{"registers": r, "spill_stores": st, "spill_loads": ld}
+                    for fn, (r, st, ld) in hits_ab._ptxas(logs["gather_tables"]["ptxas"]).items()
+                    if "expand_postings_kernel" in fn]
+    if len(expand_ptxas) != 1 or expand_ptxas[0]["spill_stores"] or expand_ptxas[0]["spill_loads"]:
+        raise AssertionError(f"K6's expansion kernel: {expand_ptxas}")
+    expand_ptxas = expand_ptxas[0]
     _phase("build", t0, kernel_sos=",".join(os.path.relpath(p, _ROOT) for p in sos.values()),
-           native_builder=native, k5_ptxas=json.dumps(k5_ptxas, separators=(",", ":")))
+           native_builder=native, k5_ptxas=json.dumps(k5_ptxas, separators=(",", ":")),
+           expand_ptxas=json.dumps(expand_ptxas, separators=(",", ":")))
 
     # -- 3. K1 vs plain, random tables -------------------------------------
     t0 = time.perf_counter()
@@ -1845,7 +2025,7 @@ def main() -> None:
     tiny2d = _tiny_runs_2d(engine2, words2, threshold, limit)
     print(json.dumps({"tiny_runs_2d": tiny2d, "card": smi}), flush=True)
     _phase("tiny_runs_2d", t0, passes=tiny2d["first_pass_variants"],
-           k6_launches=tiny2d["counts"]["k6"])
+           expand_launches=tiny2d["counts"]["expand"])
 
     # -- 19. the brute tier on the 2-D index --------------------------------------
     t0 = time.perf_counter()
@@ -1877,7 +2057,7 @@ def main() -> None:
     wide3 = _wide_g3_route(threshold, limit, dev)
     print(json.dumps({"wide_100k_g3": wide3, "card": smi}), flush=True)
     _phase("wide_g3", t0, qps=round(wide3["qps_median"], 2),
-           k5_launches=wide3["counts"]["k5"], k6_launches=wide3["counts"]["k6"])
+           k5_launches=wide3["counts"]["k5"], expand_launches=wide3["counts"]["expand"])
     torch.cuda.empty_cache()
 
     # -- 20. dense_1m: the gram-matrix route -------------------------------------
@@ -1892,6 +2072,7 @@ def main() -> None:
     g_real = gathered["gather_real_rows"]
     k5_real = wide3["route_kernels"]["k5"]
     k6_real = wide3["route_kernels"]["k6"]
+    ex_real = wide3["route_kernels"]["expand"]
     print(json.dumps({"kernels": [{
         "name": "bitmap_hits_bmax",
         "route": "cuda",
@@ -1952,13 +2133,35 @@ def main() -> None:
         "route": "cuda",
         "source": "stringsearchlib_tpu_torch/csrc/gather_tables.cu",
         "replaces": "tools/experimental/vgather.py:65",
-        "launches": wide3["counts"]["k6"],
+        # K6_LAUNCHES counts both entries of the source; no route runs this
+        # one since expand_postings took its place on the runs routes
+        "launches": wide3["counts"]["k6"] - wide3["counts"]["expand"],
+        "note": "the TPU kernel's own contract, held against its plain version in "
+                "phase 16 and at the wide g3 route's old-path indices; no route runs it",
         "max_abs_err": max(k6_err, k6_real["max_abs_err"]),
         "ms": k6_real["ms"],
         "device_ms": k6_real["device_ms"],
         "plain_ms": k6_real["plain_ms"],
         "bound_ms": k6_real["bound_ms"],
         "bound_by": k6_real["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "expand_postings",
+        "route": "cuda",
+        "source": "stringsearchlib_tpu_torch/csrc/gather_tables.cu",
+        "replaces": "tools/experimental/vgather.py:65",
+        "launches": wide3["counts"]["expand"],
+        "max_abs_err": max([ex_real["max_abs_err"]]
+                           + [c["max_abs_err"] for c in tiny2d["expand"].values()]),
+        "ms": ex_real["ms"],
+        "device_ms": ex_real["device_ms"],
+        "plain_ms": ex_real["plain_ms"],
+        "bound_ms": ex_real["bound_ms"],
+        "bound_by": ex_real["bound_by"],
+        "old_path_ms": ex_real["old_path_ms"],
+        "old_path_device_ms": ex_real["old_path_device_ms"],
+        "launches_per_expansion": ex_real["launches_per_expansion"],
+        "ptxas": expand_ptxas,
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
-// Filled gather of up to four 1-D tables at the same indices:
-// out_k[e] = table_k[idx[e]] where 0 <= idx[e] < T, else fill_k, for the
-// (B, C) index matrix idx (int32 or int64) and 4-byte tables (int32 or
-// float32, moved as raw words).
+// Kernel K6, two entries.
+//
+// gather_tables_launch: the filled gather of up to four 1-D tables at the
+// same indices: out_k[e] = table_k[idx[e]] where 0 <= idx[e] < T, else
+// fill_k, for the (B, C) index matrix idx (int32 or int64) and 4-byte
+// tables (int32 or float32, moved as raw words).
 //
 // Replaces the TPU kernel of tools/experimental/vgather.py (_gather_kernel
 // :41, _gather_call :65, pallas_call :74, gather_tables :90).  That kernel
@@ -13,13 +15,43 @@
 //
 // What bounds it on an H100: bytes.  Each element moves its index (4 or 8
 // bytes, read once), one 4-byte word of each table (a 32-byte sector from a
-// random place unless neighbouring indices share it: the postings
-// expansions that call it read sorted runs, so neighbours mostly do) and
-// one 4-byte word written per table.  So one thread takes 16 bytes of
-// indices (four int32 or two int64) with one vector load, issues all its
+// random place unless neighbouring indices share it: sorted indices mostly
+// do) and one 4-byte word written per table.  So one thread takes 16 bytes
+// of indices (four int32 or two int64) with one vector load, issues all its
 // table reads before its stores, and writes each table's output as one
 // vector.  No shared memory: nothing is reused across threads.  The kernel
 // allocates nothing and does not synchronise.
+//
+// expand_postings_launch: the postings expansion, the same TPU kernel at the
+// indices the reference computes in stringsearchlib_tpu/search/overlap.py
+// :36-50 (and search/candidates.py:1496-1512): out[b, c] is the c-th
+// posting of row b's present gram slots, their runs gram_terms[ptr[s] :
+// ptr[s+1]] laid end to end in slot order, and fill past the row's mass.
+//
+// What bounds it: bytes - each row's slots and two ptr words per present
+// slot, the sectors of the posting runs, the (B, s_cap) output.  The
+// expansion is a segmented copy, so nothing else needs to reach device
+// memory: no index matrix is built or read (the eager CSR expand built a
+// dozen (B, s_cap) int64 tensors in ~25 launches, then this gather read
+// 8-byte indices to fetch 4-byte words).  One launch.  A block serves one
+// row: it scans the row's run lengths in chunks of 256 slots (int64, with
+// the offset carried from chunk to chunk, so any Qmax), keeping each run's
+// end and its source offset in shared memory, and strides over the row's
+// tiles of 1,024 lanes, scanning again only when a tile needs another
+// chunk than the one held.  The grid is eight waves of the blocks the card
+// keeps resident, spread over the rows, so a short row gets a block per
+// tile and a long one many tiles per block: fixed 1,024-lane tiles won at
+// the routes' shapes and 8,192-lane ones at the dense path's, and this grid
+// matches the first and beats the second (expand_ab.py; one, two and four
+// waves were slower at the dense shape, sixteen the same).
+// In a tile, each thread binary-searches the run of its first lane
+// (searchsorted, side right) and walks forward over its four, so a warp
+// reads each run's words contiguously and each sector once.  Stores are
+// 16-byte vectors where s_cap % 4 == 0; lanes past the row's mass, padding
+// rows (all slots -1) included, keep the fill.  Offsets into out and
+// gram_terms are 64-bit; a source outside [0, P) and a slot outside [0, G)
+// read as the fill and an absent slot.  It allocates nothing, does not
+// synchronise, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -123,5 +155,138 @@ extern "C" int gather_tables_launch(const void* idx, const void* t0,
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+constexpr int kExpandThreads = 256;  // one slot per thread in a scan chunk
+constexpr int kExpandTile = kExpandThreads * 4;  // lanes per tile, 4 a thread
+constexpr int kExpandWaves = 8;  // the grid: waves of resident blocks
+
+__global__ void __launch_bounds__(kExpandThreads)
+expand_postings_kernel(const int* __restrict__ ptr,
+                       const uint32_t* __restrict__ terms,
+                       const int* __restrict__ slots,
+                       uint32_t* __restrict__ out, long long n_grams,
+                       long long n_post, int b, int qmax, long long s_cap,
+                       uint32_t fill, bool vec) {
+  __shared__ long long ends[kExpandThreads];  // scanned run ends
+  __shared__ long long off[kExpandThreads];   // source = off[r] + lane
+  __shared__ long long warp_sum[kExpandThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long n_tiles = (s_cap + kExpandTile - 1) / kExpandTile;
+  for (int row = blockIdx.y; row < b; row += gridDim.y) {
+    const int* rs = slots + (long long)row * qmax;
+    uint32_t* orow = out + (long long)row * s_cap;
+    int scanned = -1;  // the first slot of the chunk held in shared memory
+    for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const long long lo = tile * kExpandTile;
+      const long long hi = min(lo + (long long)kExpandTile, s_cap);
+      const long long g = lo + tid * 4;  // this thread's four lanes
+      uint32_t v[4] = {fill, fill, fill, fill};
+      long long carry = 0;  // the postings of the slots before the chunk
+      for (int q0 = 0; q0 < qmax && carry < hi; q0 += kExpandThreads) {
+        if (q0 != scanned) {  // block-uniform: scan the chunk's run lengths
+          __syncthreads();    // every thread is done with the last chunk
+          const int j = q0 + tid;
+          const int s = j < qmax ? __ldg(rs + j) : -1;
+          long long len = 0, p0 = 0;
+          if (s >= 0 && s < n_grams) {
+            p0 = __ldg(ptr + s);
+            len = (long long)__ldg(ptr + s + 1) - p0;
+          }
+          long long x = len;  // inclusive scan: warps, then the warps' sums
+#pragma unroll
+          for (int d = 1; d < 32; d <<= 1) {
+            const long long y = __shfl_up_sync(0xffffffffu, x, d);
+            if (lane >= d) x += y;
+          }
+          if (lane == 31) warp_sum[warp] = x;
+          __syncthreads();
+          long long end = carry + x;
+          for (int w = 0; w < warp; ++w) end += warp_sum[w];
+          ends[tid] = end;
+          off[tid] = p0 - (end - len);
+          __syncthreads();
+          scanned = q0;
+        }
+        const long long a = max(lo, carry);
+        const long long e = min(hi, ends[kExpandThreads - 1]);
+        if (g + 4 > a && g < e) {
+          const long long c0 = max(g, a);
+          int r = 0, r_hi = kExpandThreads - 1;  // first run ending past c0
+          while (r < r_hi) {
+            const int m = (r + r_hi) >> 1;
+            if (ends[m] > c0) r_hi = m; else r = m + 1;
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const long long c = g + k;
+            if (c < a || c >= e) continue;
+            while (ends[r] <= c) ++r;
+            const long long src = off[r] + c;
+            v[k] = (src >= 0 && src < n_post) ? __ldg(terms + src) : fill;
+          }
+        }
+        carry = ends[kExpandThreads - 1];
+      }
+      if (vec && g + 4 <= hi) {
+        *reinterpret_cast<uint4*>(orow + g) = make_uint4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (g + k < hi) orow[g + k] = v[k];
+        }
+      }
+    }
+  }
+}
+
+// blocks of expand_postings_kernel the card keeps resident, per device
+// (computed at the device's first launch)
+int resident_blocks() {
+  static int cached[64];
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return -(int)e;
+  if (dev < 64 && cached[dev] > 0) return cached[dev];
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, expand_postings_kernel,
+                                                      kExpandThreads, 0);
+  }
+  if (e != cudaSuccess) return -(int)e;
+  const int n = max(1, per_sm) * max(1, sms);
+  if (dev < 64) cached[dev] = n;
+  return n;
+}
+
+}  // namespace
+
+// gram_ptr (G+1,) int32 (not decreasing), gram_terms (P,) int32 words,
+// slots (b, qmax) int32 (-1: absent), out (b, s_cap) int32, 16-byte
+// aligned; fill as a raw word.  Grid: (blocks striding over a row's lane
+// tiles, rows looping past 65,535), kExpandWaves waves of resident blocks.
+extern "C" int expand_postings_launch(const void* gram_ptr,
+                                      const void* gram_terms,
+                                      const void* slots, void* out,
+                                      long long n_grams, long long n_post,
+                                      int b, int qmax, long long s_cap,
+                                      uint32_t fill, void* stream) {
+  if (b <= 0 || s_cap <= 0) return 0;
+  if (qmax < 0) return (int)cudaErrorInvalidValue;
+  const int resident = resident_blocks();
+  if (resident < 0) return -resident;
+  const int rows = b < 65535 ? b : 65535;
+  const long long tiles = (s_cap + kExpandTile - 1) / kExpandTile;
+  const long long per_row = max(1LL, (long long)kExpandWaves * resident / rows);
+  const dim3 grid((unsigned)min(tiles, per_row), (unsigned)rows);
+  expand_postings_kernel<<<grid, kExpandThreads, 0,
+                           reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(gram_ptr),
+      static_cast<const uint32_t*>(gram_terms), static_cast<const int*>(slots),
+      static_cast<uint32_t*>(out), n_grams, n_post, b, qmax, s_cap, fill,
+      s_cap % 4 == 0);
   return (int)cudaGetLastError();
 }

@@ -64,9 +64,8 @@ import numpy as np
 import torch
 
 from ..config import PERFECT_SCORE_CUTOFF, PROMOTED_SCORE
-from ..ops.vgather import gather_tables
+from ..ops.vgather import expand_postings
 from .editdist import dp_match
-from .overlap import posting_index
 
 _NEG_INF = float("-inf")
 
@@ -1039,9 +1038,9 @@ def candidates_runs(
 ):
     """Hit counts from each query's own postings, as the reference's
     candidates_runs_impl with its batch dimension written out: every
-    query's posting ranges expand into ``s_cap`` lanes of term ids (the
-    CSR-expand pattern, then kernel K6 with the sentinel tl on invalid
-    lanes), the lanes sort so each term's postings form a run, a run's
+    query's posting runs expand into ``s_cap`` lanes of term ids (the
+    postings expansion, the sentinel tl past the query's posting mass),
+    the lanes sort so each term's postings form a run, a run's
     length is the term's hit count, and each run's first lane carries the
     term's score and bound.  Work follows the batch's posting mass, not the
     index size, and no table is built."""
@@ -1055,9 +1054,7 @@ def candidates_runs(
     nqg_f = torch.clamp(nqg.to(torch.float32), min=1.0)
 
     # -- postings expansion -> sorted run lanes ----------------------------
-    idx = posting_index(di.gram_ptr, qslots, s_cap)
-    tid = gather_tables(idx, [di.gram_terms], [tl])[0]
-    del idx
+    tid = expand_postings(di.gram_ptr, di.gram_terms, qslots, s_cap, tl)
     pos = torch.arange(s_cap, dtype=torch.int64, device=dev).expand(b, s_cap)
     tid_sorted = torch.sort(tid, dim=1).values  # sentinels (tl) sink to the end
     del tid

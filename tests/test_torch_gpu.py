@@ -1,6 +1,6 @@
 """Tests of the PyTorch port that need a CUDA card: the hand-written K1, K2,
-row-gather, edit-distance (K5) and table-gather (K6) kernels against their
-plain versions, and the index build and the search (bitmap-kernel,
+row-gather, edit-distance (K5), table-gather (K6) and postings-expansion
+kernels against their plain versions, and the index build and the search (bitmap-kernel,
 gathered-row, weighted-bitmap, sketch, gram-matrix and sorted-runs routes)
 on the card against the same on the CPU.  They import no jax, so on a machine
 with a card and no jax they run with
@@ -391,6 +391,70 @@ def test_cuda_gather_tables_matches_plain_version(cuda, idx_dtype, n_tables):
             assert g.dtype == wnt.dtype and torch.equal(g.cpu(), wnt)
 
 
+def _expand_case(rng, b, qmax, s_cap, kind):
+    """A random CSR and (b, qmax) slots of one kind: ``mixed`` (absent slots,
+    zero-length runs, repeated grams), ``long_runs`` (runs of up to 40k
+    postings crossing the kernel's 1,024-lane tiles), ``padding`` (all but
+    the first rows without a present slot); s_cap None: the largest row's
+    posting mass, so that row fills every lane."""
+    g = 64 if kind == "long_runs" else 5000
+    lens = rng.integers(0, 40_000 if kind == "long_runs" else 60, g)
+    lens[::9] = 0
+    ptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    terms = rng.integers(-2**31, 2**31 - 1, int(ptr[-1]), dtype=np.int64).astype(np.int32)
+    slots = rng.integers(-1, g, (b, qmax)).astype(np.int32)
+    slots[:, ::7] = -1
+    if qmax > 3:
+        slots[0, 1:4] = slots[-1, 0]  # a repeated gram
+    if kind == "padding":
+        slots[2:] = -1
+    if s_cap is None:
+        sc = np.maximum(slots, 0)
+        s_cap = int(np.where(slots >= 0, lens[sc], 0).sum(1).max())
+    return [torch.from_numpy(x) for x in (ptr, terms, slots)] + [s_cap]
+
+
+@pytest.mark.parametrize("b,qmax,s_cap,kind", [
+    (1, 1, 128, "mixed"),
+    (16, 127, 4096, "mixed"),
+    (16, 128, 4097, "padding"),       # s_cap % 4 != 0: scalar stores
+    (256, 30, 1024, "mixed"),         # the wide g3 route's shape
+    (256, 300, 8192, "padding"),      # two scan chunks
+    (16, 300, None, "mixed"),         # posting mass == s_cap
+    (1, 1100, 1 << 17, "mixed"),      # five scan chunks
+    (8, 14, 1 << 20, "long_runs"),    # the tiny-runs width
+    (16, 254, None, "long_runs"),     # mass == s_cap, runs across tiles
+    (4, 6, 5000, "long_runs"),        # mass past s_cap: cut
+])
+def test_cuda_expand_postings_matches_plain_version(cuda, b, qmax, s_cap, kind):
+    rng = np.random.default_rng(b * 7 + qmax)
+    ptr, terms, slots, s_cap = _expand_case(rng, b, qmax, s_cap, kind)
+    args = [t.to(cuda) for t in (ptr, terms, slots)]
+    counts = (pvg.K6_LAUNCHES, pvg.EXPAND_LAUNCHES, pvg.K6_REF_CALLS)
+    got = pvg.expand_postings(*args, s_cap, -7)
+    torch.cuda.synchronize()
+    assert (pvg.K6_LAUNCHES, pvg.EXPAND_LAUNCHES, pvg.K6_REF_CALLS) == (
+        counts[0] + 1, counts[1] + 1, counts[2])
+    want = pvg.expand_postings_ref(*args, s_cap, -7)
+    assert got.dtype == torch.int32 and got.shape == (b, s_cap)
+    assert torch.equal(got, want)
+
+
+def test_cuda_expand_postings_contracts(cuda):
+    ptr, terms, slots, _ = _expand_case(np.random.default_rng(2), 4, 8, 64, "mixed")
+    ptr, terms, slots = ptr.to(cuda), terms.to(cuda), slots.to(cuda)
+    with pytest.raises(ValueError):
+        pvg.expand_postings(ptr, terms, slots[:, ::2], 64, 0)
+    with pytest.raises(ValueError):
+        pvg.expand_postings(ptr.cpu(), terms, slots, 64, 0)
+    launches = pvg.EXPAND_LAUNCHES
+    assert pvg.expand_postings(ptr, terms, slots[:0], 64, 0).shape == (0, 64)
+    assert pvg.EXPAND_LAUNCHES == launches
+    empty = pvg.expand_postings(torch.zeros_like(ptr), terms[:0], slots, 100, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(empty, torch.full((4, 100), 3, dtype=torch.int32, device=cuda))
+
+
 def test_build_index_defaults_to_cuda(cuda):
     host = build_index(_corpus(500, seed=3), 1, None, IndexConfig())
     assert host.device.gram_terms.device.type == "cuda"
@@ -411,14 +475,14 @@ def test_runs_and_matmul_routes_on_cuda_match_cpu(cuda, route):
     n = 24 if route != "tiny_runs" else 6
     queries = [w[:-1] + "x" if i % 2 else w
                for i, w in enumerate(rng.choice(words) for _ in range(n))]
-    counts = (pdp.K5_LAUNCHES, pvg.K6_LAUNCHES)
+    counts = (pdp.K5_LAUNCHES, pvg.K6_LAUNCHES, pvg.EXPAND_LAUNCHES)
     refs = (pdp.K5_REF_CALLS, pvg.K6_REF_CALLS)
     got = engines[1].search_batch(queries, 0.25, 10, mode="candidates")
     assert engines[1].last_routing["variant"] == route
     assert (pdp.K5_REF_CALLS, pvg.K6_REF_CALLS) == refs
     assert pdp.K5_LAUNCHES > counts[0]
     if route != "matmul":
-        assert pvg.K6_LAUNCHES > counts[1]
+        assert pvg.K6_LAUNCHES > counts[1] and pvg.EXPAND_LAUNCHES > counts[2]
     assert got == engines[0].search_batch(queries, 0.25, 10, mode="candidates")
     dense = engines[1].search_batch(queries, 0.25, 10, mode="dense")
     for g, d in zip(got, dense):

@@ -1,8 +1,11 @@
 """The filled table gather of the PyTorch port (the plain version of kernel
 K6, ``ops.vgather.gather_tables``) against the TPU kernel
-``tools.experimental.vgather.gather_tables`` in interpret mode, and the
-postings expansion that calls it (``search.overlap.gather_hits``) against
-the JAX package's.
+``tools.experimental.vgather.gather_tables`` in interpret mode; the
+postings expansion (``ops.vgather.expand_postings``) against a numpy oracle
+of the JAX package's expression and against the TPU kernel at the
+reference's indices, with a numpy model of the expansion kernel's chunked
+scan and run walk; and the dense path's ``search.overlap.gather_hits``
+against the JAX package's.
 
 Tolerance: none - int32 outputs and the bits of float32 outputs must be
 identical.  The CUDA kernel is held against the plain version on the card
@@ -105,3 +108,219 @@ def jax_hits(ptr, terms, slots, n_long, s_cap):
     return jax.vmap(lambda row: jov.gather_hits(
         jnp.asarray(ptr), jnp.asarray(terms), row, n_long, s_cap
     ))(jnp.asarray(slots))
+
+
+# ---------------------------------------------------------------------------
+# the postings expansion
+# ---------------------------------------------------------------------------
+
+
+def _reference_src(ptr, slots, s_cap):
+    """numpy form of the JAX package's CSR expand (stringsearchlib_tpu/search/
+    overlap.py:36-47, one row at a time): per row, the source position of
+    every lane and whether the lane lies inside the row's posting mass."""
+    b, qmax = slots.shape
+    src = np.zeros((b, s_cap), np.int64)
+    valid = np.zeros((b, s_cap), bool)
+    pos = np.arange(s_cap)
+    for r in range(b):
+        present = slots[r] >= 0
+        slots_c = np.maximum(slots[r], 0)
+        lens = np.where(present, ptr[slots_c + 1].astype(np.int64) - ptr[slots_c], 0)
+        ends = np.cumsum(lens)
+        rank_c = np.minimum(np.searchsorted(ends, pos, side="right"), qmax - 1)
+        starts = ends - lens
+        src[r] = ptr[slots_c[rank_c]] + (pos - starts[rank_c])
+        valid[r] = pos < ends[-1]
+    return src, valid
+
+
+def _oracle(ptr, terms, slots, s_cap, fill):
+    """The JAX expression's lanes: gram_terms at the clipped source where
+    the lane is valid, the fill elsewhere."""
+    src, valid = _reference_src(ptr, slots, s_cap)
+    if terms.size == 0:
+        return np.full((slots.shape[0], s_cap), fill, np.int32)
+    ids = terms[np.clip(src, 0, terms.size - 1)]
+    return np.where(valid, ids, fill).astype(np.int32)
+
+
+def _csr(rng, g, max_len, zero_every=0):
+    lens = rng.integers(0, max_len + 1, g)
+    if zero_every:
+        lens[::zero_every] = 0
+    ptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    terms = rng.integers(0, 1 << 30, int(ptr[-1])).astype(np.int32)
+    return ptr, terms
+
+
+def _expand_case(name):
+    """(gram_ptr, gram_terms, slots, s_cap, fill) of one named case, made
+    from a seed with numpy."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    ptr, terms = _csr(rng, 40, 12)
+    fill = 777
+    if name == "qmax_1":
+        slots = rng.integers(-1, 40, (5, 1)).astype(np.int32)
+        slots[0, 0] = int(np.argmax(np.diff(ptr)))
+        return ptr, terms, slots, 16, fill
+    if name == "all_absent":
+        return ptr, terms, np.full((4, 9), -1, np.int32), 128, fill
+    if name == "zero_length_runs":
+        ptr, terms = _csr(rng, 40, 6, zero_every=2)
+        slots = rng.integers(0, 40, (4, 16)).astype(np.int32)
+        slots[:, ::3] = 0  # slot 0 has no postings
+        return ptr, terms, slots, 128, fill
+    if name == "repeated_gram":
+        slots = rng.integers(-1, 40, (3, 10)).astype(np.int32)
+        slots[0, 2:7] = slots[1, 0] = slots[1, 9] = 5
+        return ptr, terms, slots, 256, fill
+    if name in ("mass_equals_s_cap", "mass_below_s_cap", "mass_above_s_cap"):
+        slots = rng.integers(0, 40, (3, 12)).astype(np.int32)
+        mass = int((ptr[slots + 1] - ptr[slots]).sum(1).max())
+        s_cap = {"mass_equals_s_cap": mass, "mass_below_s_cap": mass + 37,
+                 "mass_above_s_cap": mass - 5}[name]
+        return ptr, terms, slots, s_cap, fill
+    if name == "empty_gram_terms":
+        ptr = np.zeros(41, np.int32)
+        return ptr, terms[:0], rng.integers(-1, 40, (3, 7)).astype(np.int32), 64, fill
+    if name == "padding_rows":
+        slots = np.full((16, 14), -1, np.int32)
+        slots[:3] = rng.integers(-1, 40, (3, 14))
+        return ptr, terms, slots, 1024, -1
+    raise KeyError(name)
+
+
+_EXPAND_CASES = ["qmax_1", "all_absent", "zero_length_runs", "repeated_gram",
+                 "mass_equals_s_cap", "mass_below_s_cap", "mass_above_s_cap",
+                 "empty_gram_terms", "padding_rows"]
+
+
+@pytest.mark.parametrize("case", _EXPAND_CASES)
+def test_expand_postings_matches_oracle_and_vgather(interpret, case):
+    """The port's expansion on CPU tensors (its plain version) bit for bit
+    against the numpy oracle of the JAX expression and against the TPU
+    kernel in interpret mode at the reference's indices."""
+    ptr, terms, slots, s_cap, fill = _expand_case(case)
+    want = _oracle(ptr, terms, slots, s_cap, fill)
+    calls, launches = pvg.K6_REF_CALLS, pvg.EXPAND_LAUNCHES
+    got = pvg.expand_postings(torch.from_numpy(ptr), torch.from_numpy(terms),
+                              torch.from_numpy(slots), s_cap, fill)
+    assert (pvg.K6_REF_CALLS, pvg.EXPAND_LAUNCHES) == (calls + 1, launches)
+    assert got.dtype == torch.int32 and got.shape == (slots.shape[0], s_cap)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if terms.size:  # the TPU kernel takes no empty table
+        src, valid = _reference_src(ptr, slots, s_cap)
+        idx = np.where(valid, src, -1).astype(np.int32)
+        (tpu,) = jvg.gather_tables(jnp.asarray(idx), [jnp.asarray(terms)], (fill,))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(tpu))
+
+
+# csrc/gather_tables.cu's expand_postings_kernel: lanes per tile (4 a
+# thread), slots per scan chunk (one a thread)
+_TILE, _CHUNK = 1024, 256
+
+
+def _kernel_model(ptr, terms, slots, s_cap, fill, grid_x):
+    """numpy model of expand_postings_kernel's schedule: a block per (row,
+    blockIdx.x < grid_x) strides over the row's tiles; in a tile the row's
+    run lengths are scanned in chunks of _CHUNK slots with the offset
+    carried, a chunk scanned again only when it is not the one held; the
+    chunk's lanes of the tile are found by a binary search for each
+    thread's first lane and a forward walk for the next three, the rest
+    left at the fill."""
+    b, qmax = slots.shape
+    out = np.full((b, s_cap), fill, np.int64)
+    n_grams, n_post = ptr.size - 1, terms.size
+    n_tiles = -(-s_cap // _TILE)
+    for row in range(b):
+        for bx in range(min(grid_x, n_tiles)):
+            scanned, ends, off = -1, None, None
+            for lo in range(bx * _TILE, s_cap, grid_x * _TILE):
+                hi = min(lo + _TILE, s_cap)
+                carry, q0 = 0, 0
+                while q0 < qmax and carry < hi:
+                    if q0 != scanned:
+                        s = np.full(_CHUNK, -1, np.int64)
+                        s[: min(_CHUNK, qmax - q0)] = slots[row, q0 : q0 + _CHUNK]
+                        ok = (s >= 0) & (s < n_grams)
+                        sc = np.where(ok, s, 0)
+                        p0 = np.where(ok, ptr[sc], 0).astype(np.int64)
+                        lens = np.where(ok, ptr[np.minimum(sc + 1, n_grams)] - p0, 0)
+                        ends = carry + np.cumsum(lens)
+                        off = p0 - (ends - lens)
+                        scanned = q0
+                    a, e = max(lo, carry), min(hi, int(ends[-1]))
+                    for t in range(_CHUNK):
+                        g = lo + t * 4
+                        if g + 4 <= a or g >= e:
+                            continue
+                        r = int(np.searchsorted(ends, max(g, a), side="right"))
+                        for c in range(g, g + 4):
+                            if c < a or c >= e:
+                                continue
+                            while ends[r] <= c:
+                                r += 1
+                            src = int(off[r]) + c
+                            out[row, c] = terms[src] if 0 <= src < n_post else fill
+                    carry = int(ends[-1])
+                    q0 += _CHUNK
+    return out.astype(np.int32)
+
+
+@pytest.mark.parametrize("case", _EXPAND_CASES + [
+    "chunks_qmax_300", "chunks_qmax_700", "runs_across_tiles"])
+def test_expansion_kernel_model_matches_oracle(case):
+    """The CUDA kernel's schedule, modelled in numpy, gives the JAX
+    expression's lanes, with a block per tile and with blocks striding over
+    2 and 5 tiles: on the named cases, on rows of 300 and 700 slots (scan
+    chunks with a carried offset, scanned again per tile) and on long runs
+    that cross the 1,024-lane tiles."""
+    if case.startswith("chunks"):
+        rng = np.random.default_rng(300)
+        ptr, terms = _csr(rng, 90, 9, zero_every=7)
+        qmax = int(case.rsplit("_", 1)[1])
+        slots = rng.integers(-1, 90, (3, qmax)).astype(np.int32)
+        slots[2, 250:260] = 11  # a repeated gram astride the first chunk's end
+        # at 300 slots the first chunk's mass passes s_cap: the scan stops
+        s_cap = 8192 if qmax == 700 else 900
+        fill = 5
+    elif case == "runs_across_tiles":
+        rng = np.random.default_rng(4096)
+        ptr, terms = _csr(rng, 6, 3000)
+        slots = np.array([[0, 1, 2, -1, 3], [5, 5, 5, 4, -1]], np.int32)
+        s_cap, fill = 3 * _TILE + 7, -9
+    else:
+        ptr, terms, slots, s_cap, fill = _expand_case(case)
+    want = _oracle(ptr, terms, slots, s_cap, fill)
+    for grid_x in (1 << 30, 2, 5):
+        np.testing.assert_array_equal(
+            _kernel_model(ptr, terms, slots, s_cap, fill, grid_x), want)
+
+
+def _bad_args(case):
+    ptr = torch.tensor([0, 2, 5], dtype=torch.int32)
+    terms = torch.arange(5, dtype=torch.int32)
+    slots = torch.tensor([[0, 1]], dtype=torch.int32)
+    return {
+        "slots_int64": ((ptr, terms, slots.long(), 8, 0), TypeError),
+        "terms_float32": ((ptr, terms.float(), slots, 8, 0), TypeError),
+        "ptr_int64": ((ptr.long(), terms, slots, 8, 0), TypeError),
+        "slots_1d": ((ptr, terms, slots[0], 8, 0), ValueError),
+        "ptr_2d": ((ptr[None], terms, slots, 8, 0), ValueError),
+        "device_mismatch": ((ptr.to("meta"), terms, slots, 8, 0), ValueError),
+        "s_cap_0": ((ptr, terms, slots, 0, 0), ValueError),
+        "qmax_0": ((ptr, terms, slots[:, :0], 8, 0), ValueError),
+        "fill_not_int32": ((ptr, terms, slots, 8, 1 << 31), ValueError),
+    }[case]
+
+
+@pytest.mark.parametrize("case", ["slots_int64", "terms_float32", "ptr_int64",
+                                  "slots_1d", "ptr_2d", "device_mismatch",
+                                  "s_cap_0", "qmax_0", "fill_not_int32"])
+def test_expand_postings_contracts(case):
+    args, err = _bad_args(case)
+    calls = pvg.K6_REF_CALLS
+    with pytest.raises(err):
+        pvg.expand_postings(*args)
+    assert pvg.K6_REF_CALLS == calls
