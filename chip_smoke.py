@@ -26,24 +26,30 @@ Drives the port's candidate paths on one CUDA card, through
   * ``bench.py``'s ``dense_1m`` (1M product names): the gram-matrix route
     (``torch._int_mm``) with the h* finish, batches and single queries.
 
+It also launches the K1 probes P1-P9 (``ops.probes``, the port of the
+reference's probe tools) at their tools' full shapes while the 10M-key
+table is resident.
+
 Phases, each printing one line with its seconds; any failure raises, so the
 script exits non-zero and prints no final ``ok`` line.  They run in the
-order 1-3, 15, 4-6, 11-12, 7-10, 16, 18-19, 13-14, 17, 20:
+order 1-3, 15, 4-5, 21, 6, 11-12, 7-10, 16, 18-19, 13-14, 17, 20:
 
   1. device: a CUDA card is required; prints nvidia-smi's name and power
      limit;
   2. build: compiles the CUDA sources in csrc/ with nvcc (one process per
      source, started together) and the native index builder with g++, and
      says whether the native builder loaded; prints ptxas's registers and
-     spills of K5's instances and of K6's expansion kernel, and fails on a
-     spill in K5's register instances or in the expansion kernel;
+     spills of K5's instances, of K6's expansion kernel and of the probe
+     kernels' instances, and fails on a spill in K5's register instances,
+     the expansion kernel or a probe instance, or on a missing instance;
   3. K1 against its plain PyTorch version on random tables (every bit set
      somewhere, bit 7 included; multiplicities summing to 31 and to 127)
      and on the edges of its bit-sliced counters (``_edge_cases``:
      multiplicities above 1 summing to 127, a table with every bit set
      under multiplicity 127, 127 rows of multiplicity 1, B = 1 and 33,
      Gp = 32, Gp = 8192 with bucket collisions): bit-identical hits and
-     block maxima;
+     block maxima; the random cases again on the row-major form of their
+     tables;
   4. main path: builds the index on the card, runs one warm-up and three
      timed batches of 512 queries, requires the bitmap_kernel + h* route and
      K1 launches; then times 64 single queries;
@@ -55,8 +61,8 @@ order 1-3, 15, 4-6, 11-12, 7-10, 16, 18-19, 13-14, 17, 20:
   6. exactness: 32 queries again through the dense path, requiring the
      same (score, key length) tie groups holding the same keys;
   7. K2 against its plain version on random tables (Gp 128 / 2816 / 8192,
-     B 16 / 256 / 512, sums 31 / 127) and on phase 3's edges: bit-identical
-     hits;
+     B 16 / 256 / 512, sums 31 / 127), on their row-major form and on phase
+     3's edges: bit-identical hits;
   8. 2-D path: builds the weighted 2-D index on the card and its packed
      sketch, runs one warm-up and three timed batches of 1,024 queries,
      requires the sketch_packed route, K2 launches and no plain calls;
@@ -115,11 +121,20 @@ order 1-3, 15, 4-6, 11-12, 7-10, 16, 18-19, 13-14, 17, 20:
      bit-identical to the plain version, per call and device time;
   20. dense_1m: 1M product names; 512-query batches and 32 single queries,
      each first pass routed matmul with h*; 32 queries against the dense
-     path; q/s and single p50/p90.
+     path; q/s and single p50/p90;
+  21. the K1 probes: P1-P9 against their plain versions at random and edge
+     shapes (``_probe_random``), then the probe tools' cases at full shape
+     (``_probe_phase``): P1, P8 (B = 256 and 512) and P9's six variants on
+     the 10M table in the reference's row-major layout with the headline's
+     first 256 queries, P2-P7 on the 2,560-tile synthetic table in both
+     layouts; every count set to 0, each case driven once, the counts read;
+     then each case held against its plain version and timed (CUDA events
+     per call, calls queued behind a spin kernel, the plain version, the
+     bound, ``torch.amax`` for P1-P3).
 
-The line before the last is a JSON object describing the six TPU kernels'
-ports and the postings expansion; the last line is ``{"ok": true,
-"device": {...}}``.
+The line before the last is a JSON object describing the TPU kernels'
+ports (K1-K6, the postings expansion, P1-P9); the last line is ``{"ok":
+true, "device": {...}}``.
 
 Usage:  python3 chip_smoke.py [--keys N] [--rows2d N] [--rows2d-bitmap N]
 """
@@ -133,6 +148,7 @@ import json
 import math
 import os
 import random
+import re
 import subprocess
 import sys
 import time
@@ -140,6 +156,15 @@ import time
 os.environ.setdefault("NUMPY_MADVISE_HUGEPAGE", "0")
 
 _ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, _ROOT)
+# the card's published peaks, CUDA-event and spin-queued timing, bounds,
+# exact comparison: shared with the port's probe tools
+from stringsearchlib_tpu_torch.tools.common import PEAK_INT8, hits_bound  # noqa: E402
+from stringsearchlib_tpu_torch.tools.common import bound as _bound  # noqa: E402
+from stringsearchlib_tpu_torch.tools.common import cuda_ms as _cuda_ms  # noqa: E402
+from stringsearchlib_tpu_torch.tools.common import max_abs_err as _max_abs_err  # noqa: E402
+from stringsearchlib_tpu_torch.tools.common import queued_ms as _queued_ms  # noqa: E402
+
 _T0 = time.perf_counter()
 N_QUERIES = 512  # one batch of the headline (bench.py)
 N_QUERIES_2D = 1024  # the 2-D config's query count (bench.py)
@@ -151,10 +176,6 @@ N_QUERIES_WIDE = 256
 N_1M = 1_000_000  # bench.py dense_1m
 N_SINGLE_1M = 32
 N_BRUTE = 16
-# the card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
-# HBM bytes/s, int8 tensor-core ops/s
-PEAK_BYTES = 3.35e12
-PEAK_INT8 = 1979e12
 # 32-bit integer ops per SM per clock: the Hopper SM's 64 INT32 lanes
 # (NVIDIA H100 Tensor Core GPU Architecture whitepaper, the SM diagram);
 # the data sheet lists no integer rate outside the tensor cores
@@ -183,23 +204,6 @@ def _phase(name: str, t0: float, **info) -> None:
         f"(total {time.perf_counter() - _T0:.1f}s) {extra}",
         flush=True,
     )
-
-
-def _cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call over ``reps`` calls, after one warm-up,
-    timed with CUDA events."""
-    import torch
-
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def _random_case(gen, b: int, gp: int, ntiles: int, total: int, device):
@@ -279,17 +283,19 @@ def _edge_cases(gen, device):
 
 
 def _kernel_of(name: str):
-    """'k1' / 'k2' for the two instantiations of csrc/bitmap_hits.cu's
-    kernel (demangled or mangled name), 'g' for csrc/gather_rows.cu's, 'k5'
-    for csrc/dp_match.cu's, 'k6' for either of csrc/gather_tables.cu's,
-    else None."""
+    """'k1' / 'k2' for the instantiations of csrc/bitmap_hits.cu's kernels
+    (demangled or mangled name), 'g' for csrc/gather_rows.cu's, 'k5' for
+    csrc/dp_match.cu's, 'k6' for either of csrc/gather_tables.cu's, 'probe'
+    for the K1 probes', else None."""
     if "gather_rows_kernel" in name:
         return "g"
+    if "probe_hits_kernel" in name or "probe_stream_kernel" in name:
+        return "probe"
     if "dp_match_kernel" in name:
         return "k5"
     if "gather_tables_kernel" in name or "expand_postings_kernel" in name:
         return "k6"
-    if "bitmap_hits_kernel" not in name:
+    if "bitmap_hits_kernel" not in name and "bitmap_hits_rowmajor_kernel" not in name:
         return None
     return "k1" if ("<true>" in name or "ILb1E" in name) else "k2"
 
@@ -375,48 +381,6 @@ def _device_ms(fn, reps: int = 20):
     return busy / reps
 
 
-# cycles of the spin kernel that queued calls wait behind (~50 ms at the
-# H100's 1.98 GHz): far longer than the host takes to enqueue them
-SPIN_CYCLES = 100_000_000
-
-
-def _queued_ms(fn, reps: int = 20):
-    """Device milliseconds per call of ``fn``: ``reps`` calls enqueued while
-    a spin kernel holds the card, timed with CUDA events from the spin's end
-    to the last call's end, so the host's time between launches is hidden
-    and what remains is the device's work, back to back.  It needs no
-    profiler: late in a long process torch.profiler drops the first kernels
-    of a trace and can misstate the durations of the rest.  None (not
-    measured) when the spin ended before the host had enqueued every call,
-    or when ``fn`` waits for the device."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SPIN_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    late = start.query()  # the spin had ended: host gaps would count
-    torch.cuda.synchronize()
-    return None if late else start.elapsed_time(end) / reps
-
-
-def _max_abs_err(a, b, rows: int = 32) -> int:
-    """Largest |a - b| over two equal-shape int8 tensors, taken ``rows``
-    rows at a time so the widened copies stay small."""
-    import torch
-
-    err = 0
-    for r in range(0, a.shape[0], rows):
-        d = a[r : r + rows].to(torch.int16) - b[r : r + rows].to(torch.int16)
-        err = max(err, int(d.abs().max()))
-    return err
-
-
 def _check_results(results, queries, floor, limit) -> None:
     """One row per query, at most ``limit`` results, every score finite
     and >= ``floor`` (the threshold times the smallest edge weight: the
@@ -463,12 +427,15 @@ def _reset_counts() -> None:
     """Every kernel's launch and plain-call count to 0."""
     from stringsearchlib_tpu_torch.ops import bitmap_matmul as bmm
     from stringsearchlib_tpu_torch.ops import dp_match as k5
+    from stringsearchlib_tpu_torch.ops import probes
     from stringsearchlib_tpu_torch.ops import vgather as k6
 
     bmm.K1_LAUNCHES = bmm.K1_REF_CALLS = bmm.K2_LAUNCHES = bmm.K2_REF_CALLS = 0
     bmm.G_LAUNCHES = bmm.G_REF_CALLS = 0
     k5.K5_LAUNCHES = k5.K5_REF_CALLS = k6.K6_LAUNCHES = k6.K6_REF_CALLS = 0
     k6.EXPAND_LAUNCHES = 0
+    for d in (probes.LAUNCHES, probes.REF_CALLS):
+        d.update(dict.fromkeys(d, 0))
 
 
 def _counts() -> dict:
@@ -486,24 +453,13 @@ def _counts() -> dict:
     }
 
 
-def _bound(nbytes: float, ops: float = 0.0, peak_ops: float | None = None):
-    """The least time the card could take: the larger of ``nbytes`` over the
-    HBM rate and ``ops`` over ``peak_ops`` (ms, and which bounds it)."""
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = ops / peak_ops * 1e3 if ops else 0.0
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def _hits_bound(q, ntiles: int, bmax: bool):
     """K1 / K2 on ``q`` (B, Gp) multiplicities over ``ntiles`` tiles: the
     listed rows of the table read once, the multiplicities, the int8 hits
     (and block maxima) written once; two int8 operations per listed
     (query, row, term)."""
     b = q.shape[0]
-    rows = int((q != 0).any(0).sum())
-    nbytes = (rows * ntiles * 512 + q.numel() * q.element_size()
-              + b * ntiles * 4096 + (b * ntiles * 32 if bmax else 0))
-    ops = 2 * int((q != 0).sum()) * ntiles * 4096
+    nbytes, ops = hits_bound(q, ntiles, b * ntiles * 4096 + (b * ntiles * 32 if bmax else 0))
     return _bound(nbytes, ops, PEAK_INT8)
 
 
@@ -1612,6 +1568,160 @@ def _matmul_1m(threshold, limit, dev):
     return info
 
 
+# the K1 probes: (id, file:line of the TPU kernel's pallas_call)
+PROBES = (
+    ("P1", "tools/probe_bandwidth.py:95"),
+    ("P2", "tools/probe_layout_r5.py:128"),
+    ("P3", "tools/probe_layout_r5.py:153"),
+    ("P4", "tools/probe_layout_r5.py:226"),
+    ("P5", "tools/probe_layout_r5.py:248"),
+    ("P6", "tools/probe_layout_r5.py:277"),
+    ("P7", "tools/probe_layout_r5.py:303"),
+    ("P8", "tools/probe_kernel_raw.py:161"),
+    ("P9", "tools/probe_kernel_bisect.py:192"),
+)
+
+
+def _probe_random(gen, dev) -> dict:
+    """P1-P9 against their plain versions at small random and edge shapes:
+    random signed tables and the every-bit-set (-1) and -128 tables; G = 37
+    (a ragged row loop) and 2,816 for the streams; counts summing to 31 and
+    to 127 (B = 33, a ragged last group of 16; 48 for P6) in both layouts,
+    for P8/P9 with rows of -1 and -128 bytes under a query whose every count
+    is its sum.  Returns {probe id: [cases, max_abs_err]}; raises on a
+    difference."""
+    import torch
+
+    from stringsearchlib_tpu_torch.ops import bitmap_matmul as bmm
+    from stringsearchlib_tpu_torch.ops import probes
+    from stringsearchlib_tpu_torch.tools import common
+
+    res = {p: [0, 0] for p, _ in PROBES}
+
+    def check(probe, got, want, what):
+        torch.cuda.synchronize()
+        err = common.max_abs_err(got, want)
+        res[probe][0] += 1
+        res[probe][1] = max(res[probe][1], err)
+        if err or got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"{probe} differs from its plain version on {what}: {err}")
+
+    def table(g, kind):
+        if kind == "random":
+            return torch.randint(-128, 128, (g, 3 * 512), generator=gen,
+                                 dtype=torch.int8).to(dev)
+        return torch.full((g, 3 * 512), -1 if kind == "ones" else -128,
+                          dtype=torch.int8, device=dev)
+
+    def counts(b, gp, total):
+        return _random_case(gen, b, gp, 1, total, "cpu")[1].to(dev)
+
+    for g in (37, 2816):
+        for kind in ("random", "ones", "min"):
+            t = table(g, kind)
+            t3 = bmm.to_tile_major(t)
+            r = torch.randint(-130, 10, (1, 512), generator=gen, dtype=torch.int32).to(dev)
+            what = f"g={g} {kind}"
+            check("P1", probes.pl_stream(t), probes.stream_ref(t), what)
+            check("P2", probes.stream_row(t, r), probes.stream_ref(t, r), what)
+            check("P3", probes.stream_tile(t3, r), probes.stream_ref(t3, r), what)
+    for total in (31, 127):
+        for kind in ("random", "ones", "min"):
+            gp = 2816 if kind == "random" else 128
+            t = table(gp, kind)
+            t3 = bmm.to_tile_major(t)
+            for variant in probes.PAIR_VARIANTS:
+                q = counts(48 if variant == "tile_q2" else 33, gp, total)
+                tv = t if variant == "row" else t3
+                check(probes.PAIR_PROBE[variant],
+                      probes.pair(q, tv, variant=variant),
+                      probes.pair_ref(q, tv, variant=variant), f"sum={total} {kind}")
+        t = table(2816, "random")
+        t[:4], t[4:8] = -1, -128
+        q = counts(33, 2816, total)
+        q[0] = 0
+        q[0, 0], q[0, 4] = total - 2, 2
+        for tv in (t, bmm.to_tile_major(t)):
+            what = f"sum={total} {'row' if tv.ndim == 2 else 'tile'}-major"
+            for i16 in (True, False):
+                check("P8", probes.raw_hits(q, tv, i16=i16),
+                      probes.raw_hits_ref(q, tv, i16=i16), what)
+            for variant in probes.BISECT_VARIANTS:
+                check("P9", probes.bisect_run(q, tv, variant=variant),
+                      probes.bisect_ref(q, tv, variant=variant), f"{what} {variant}")
+    return res
+
+
+def _probe_phase(table, slots, dev) -> dict:
+    """The probe tools' cases at full shape (``tools.probe_*``): P1, P8 at
+    B = 256 and 512 and P9's variants on ``table`` in the reference's
+    row-major layout with the first 256 queries' counts (the tools' queries),
+    P2-P7 on the tools' synthetic 2,560-tile table in both layouts.  Every
+    count is set to 0, each case driven once and the counts read; then each
+    case is held against its plain version and timed (``common.measure``),
+    and the layout tool's own parity is checked."""
+    import torch
+
+    from stringsearchlib_tpu_torch.ops import bitmap_matmul as bmm
+    from stringsearchlib_tpu_torch.ops import probes
+    from stringsearchlib_tpu_torch.tools import (
+        common, probe_bandwidth, probe_kernel_bisect, probe_kernel_raw, probe_layout,
+    )
+
+    rm = bmm.from_tile_major(table).contiguous()
+    q = common.counts(slots[:256], int(table.shape[1]), dev)
+    q2 = torch.cat([q, q])
+    t_row, t_tile = probe_layout.synthetic_tables(2560, probe_layout.GP, dev)
+    qs = probe_layout.synthetic_queries(512, probe_layout.GP, dev)
+    cases = (probe_layout.cases(t_row, t_tile, qs, 256)
+             + [probe_bandwidth.p1_case(rm), probe_kernel_raw.raw_case(q, rm),
+                probe_kernel_raw.raw_case(q2, rm, "raw_hits_i16_b512")]
+             + probe_kernel_bisect.bisect_cases(q, rm))
+    torch.cuda.synchronize()
+    _reset_counts()
+    for case in cases:
+        case.kernel()
+    torch.cuda.synchronize()
+    launches, plain = dict(probes.LAUNCHES), dict(probes.REF_CALLS)
+    if any(n <= 0 for n in launches.values()) or any(plain.values()):
+        raise AssertionError(f"probe launches {launches}, plain calls {plain}")
+    results = []
+    for case in cases:
+        results.append(common.measure(case))
+        print(json.dumps({"probe_case": results[-1]}), flush=True)
+    parity = probe_layout.parity(t_row, t_tile, qs, 256)
+    if not all(parity.values()):
+        raise AssertionError(f"pair variants differ from pair_row: {parity}")
+    max_windows = int(q.sum(1).max())
+    del rm, q, q2, t_row, t_tile, qs, cases
+    torch.cuda.empty_cache()
+    return {"launches": launches, "results": results, "layout_parity": parity,
+            "max_windows": max_windows}
+
+
+def _probe_entry(probe: str, line: str, run: dict, edges: dict, ptxas: dict) -> dict:
+    """One probe's entry of the kernels line: its first full-shape case's
+    numbers, every case of it under ``cases``."""
+    mine = [r for r in run["results"] if r["probe"] == probe]
+    first = mine[0]
+    return {
+        "name": f"{probe} {first['name']}",
+        "route": "cuda",
+        "source": "stringsearchlib_tpu_torch/csrc/"
+                  + ("probe_stream.cu" if probe in ("P1", "P2", "P3") else "probe_hits.cu"),
+        "replaces": line,
+        "launches": run["launches"][probe],
+        "max_abs_err": max([edges[probe][1]] + [r["max_abs_err"] for r in mine]),
+        **{k: first[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "gb_per_s")},
+        "cases": {r["name"]: {k: r[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                "bound_by", "gb_per_s", "compared_rows")}
+                  for r in mine},
+        "edge_cases": edges[probe][0],
+        **({"ptxas": ptxas["stream"]} if probe in ("P1", "P2", "P3") else {}),
+    }
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--keys", type=int, default=10_000_000)
@@ -1660,13 +1770,14 @@ def main() -> None:
 
     import hits_ab
     from stringsearchlib_tpu_torch.ops import dp_match as k5
+    from stringsearchlib_tpu_torch.ops import probes
 
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         # ptxas's registers and spills of K5's instances and of K6's
         # expansion, compiled beside the package's kernels
         ptxas = pool.submit(hits_ab._nvcc_jobs, {
             name: os.path.join(_ROOT, "stringsearchlib_tpu_torch", "csrc", f"{name}.cu")
-            for name in ("dp_match", "gather_tables")},
+            for name in ("dp_match", "gather_tables", "probe_hits", "probe_stream")},
             os.path.join(_ROOT, "build", "ptxas"), ("cubin",))
         sos = kernels.build_kernels()
         for name in sos:
@@ -1686,9 +1797,21 @@ def main() -> None:
     if len(expand_ptxas) != 1 or expand_ptxas[0]["spill_stores"] or expand_ptxas[0]["spill_loads"]:
         raise AssertionError(f"K6's expansion kernel: {expand_ptxas}")
     expand_ptxas = expand_ptxas[0]
+    # the probe instances: 7 epilogues at 16 queries a block, P6's at 32, the stream
+    epi_names = {str(code): name for name, (code, _, _) in probes.EPILOGUES.items()}
+    probe_ptxas = {}
+    for src in ("probe_hits", "probe_stream"):
+        for fn, (r, st, ld) in hits_ab._ptxas(logs[src]["ptxas"]).items():
+            m = re.search(r"probe_hits_kernelILi(\d+)ELi(\d+)E", fn)
+            key = f"{epi_names[m.group(1)]} qpb{m.group(2)}" if m else "stream"
+            probe_ptxas[key] = {"registers": r, "spill_stores": st, "spill_loads": ld}
+    if (len(probe_ptxas) != len(probes.EPILOGUES) + 2
+            or any(v["spill_stores"] or v["spill_loads"] for v in probe_ptxas.values())):
+        raise AssertionError(f"the probe kernels' instances: {probe_ptxas}")
     _phase("build", t0, kernel_sos=",".join(os.path.relpath(p, _ROOT) for p in sos.values()),
            native_builder=native, k5_ptxas=json.dumps(k5_ptxas, separators=(",", ":")),
-           expand_ptxas=json.dumps(expand_ptxas, separators=(",", ":")))
+           expand_ptxas=json.dumps(expand_ptxas, separators=(",", ":")),
+           probe_ptxas=json.dumps(probe_ptxas, separators=(",", ":")))
 
     # -- 3. K1 vs plain, random tables -------------------------------------
     t0 = time.perf_counter()
@@ -1699,20 +1822,21 @@ def main() -> None:
         for b in (16, 256, 512):
             for total in (31, 127):
                 planes, qcnt = _random_case(gen, b, gp, 3, total, dev)
-                hits, bmax = bmm.bitmap_hits_bmax(qcnt, planes)
-                rh, rb = bmm.bitmap_hits_bmax_ref(qcnt, planes)
-                torch.cuda.synchronize()
-                err = max(
-                    int((hits.int() - rh.int()).abs().max()),
-                    int((bmax.int() - rb.int()).abs().max()),
-                )
-                max_err = max(max_err, err)
-                n_cases += 1
-                if err or not torch.equal(hits, rh) or not torch.equal(bmax, rb):
-                    raise AssertionError(
-                        f"K1 differs from its plain version: gp={gp} b={b} "
-                        f"sum={total} max_abs_err={err}"
+                for t in (planes, bmm.from_tile_major(planes).contiguous()):
+                    hits, bmax = bmm.bitmap_hits_bmax(qcnt, t)
+                    rh, rb = bmm.bitmap_hits_bmax_ref(qcnt, t)
+                    torch.cuda.synchronize()
+                    err = max(
+                        int((hits.int() - rh.int()).abs().max()),
+                        int((bmax.int() - rb.int()).abs().max()),
                     )
+                    max_err = max(max_err, err)
+                    n_cases += 1
+                    if err or not torch.equal(hits, rh) or not torch.equal(bmax, rb):
+                        raise AssertionError(
+                            f"K1 differs from its plain version: gp={gp} b={b} "
+                            f"sum={total} {t.ndim}-D table max_abs_err={err}"
+                        )
     edges = _edge_cases(gen, dev)
     for name, planes, qcnt in edges:
         hits, bmax = bmm.bitmap_hits_bmax(qcnt, planes)
@@ -1843,6 +1967,17 @@ def main() -> None:
     print(json.dumps({"k1_timing": timing, "card": smi}), flush=True)
     _phase("k1_real_table", t0, max_abs_err=real_err, step=step)
 
+    # -- 21. the K1 probes P1-P9 ---------------------------------------------
+    t0 = time.perf_counter()
+    probe_edges = _probe_random(gen, dev)
+    probe_run = _probe_phase(table, slots, dev)
+    print(json.dumps({"probes": probe_run, "probe_edges": probe_edges, "card": smi}),
+          flush=True)
+    _phase("probes", t0, launches=probe_run["launches"],
+           edge_cases=sum(n for n, _ in probe_edges.values()),
+           max_abs_err=max(max(e for _, e in probe_edges.values()),
+                           max(r["max_abs_err"] for r in probe_run["results"])))
+
     # -- 6. exactness against the dense path -----------------------------------
     t0 = time.perf_counter()
     _check_exact(engine, queries[:32], results[:32], threshold, limit)
@@ -1872,17 +2007,18 @@ def main() -> None:
         for b in (16, 256, 512):
             for total in (31, 127):
                 planes, qcnt = _random_case(gen, b, gp, 3, total, dev)
-                hits = bmm.bitmap_hits(qcnt, planes)
-                rh = bmm.bitmap_hits_ref(qcnt, planes)
-                torch.cuda.synchronize()
-                err = int((hits.int() - rh.int()).abs().max())
-                k2_err = max(k2_err, err)
-                n_cases += 1
-                if err or not torch.equal(hits, rh):
-                    raise AssertionError(
-                        f"K2 differs from its plain version: gp={gp} b={b} "
-                        f"sum={total} max_abs_err={err}"
-                    )
+                for t in (planes, bmm.from_tile_major(planes).contiguous()):
+                    hits = bmm.bitmap_hits(qcnt, t)
+                    rh = bmm.bitmap_hits_ref(qcnt, t)
+                    torch.cuda.synchronize()
+                    err = int((hits.int() - rh.int()).abs().max())
+                    k2_err = max(k2_err, err)
+                    n_cases += 1
+                    if err or not torch.equal(hits, rh):
+                        raise AssertionError(
+                            f"K2 differs from its plain version: gp={gp} b={b} "
+                            f"sum={total} {t.ndim}-D table max_abs_err={err}"
+                        )
     for name, planes, qcnt in edges:
         hits = bmm.bitmap_hits(qcnt, planes)
         rh = bmm.bitmap_hits_ref(qcnt, planes)
@@ -2163,7 +2299,8 @@ def main() -> None:
         "launches_per_expansion": ex_real["launches_per_expansion"],
         "ptxas": expand_ptxas,
         "library_ms": None,
-    }]}), flush=True)
+    }] + [_probe_entry(probe, line, probe_run, probe_edges, probe_ptxas)
+          for probe, line in PROBES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count,
     }}), flush=True)

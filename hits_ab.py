@@ -20,8 +20,10 @@ tables: K1 on the headline's 10M-key bitmap table and K2 on the weighted
 2-D index's packed sketch, at B = 256 and 512 with real queries' counts.
 There the bodies run on the same compacted row lists in turns (every body,
 then every body in reverse order), each turn the mean of ``--reps`` calls
-timed with CUDA events, then in device time from a torch.profiler trace,
-beside the bound and the listed (query, row) pairs.
+timed with CUDA events, then in device time from calls queued behind a spin
+kernel (``chip_smoke._queued_ms``; a torch.profiler trace's figure beside
+it, which late in a long process can drop kernels and read "not
+measured"), beside the bound and the listed (query, row) pairs.
 
 The SASS count: in each kernel function, every loop (a backward branch)
 with its instructions, 16-byte loads and LOP3s.  For the package's body it
@@ -53,7 +55,8 @@ import time
 
 _ROOT = os.path.dirname(os.path.abspath(__file__))
 _BUILD = os.path.join(_ROOT, "build", "hits_ab")
-_NEW = os.path.join(_ROOT, "stringsearchlib_tpu_torch", "csrc", "bitmap_hits.cu")
+_CSRC = os.path.join(_ROOT, "stringsearchlib_tpu_torch", "csrc")
+_NEW = os.path.join(_CSRC, "bitmap_hits.cu")
 _T0 = time.perf_counter()
 
 
@@ -64,9 +67,10 @@ def _log(*a) -> None:
 def _nvcc_jobs(paths: dict, out_dir: str = _BUILD, kinds=("so", "cubin")) -> dict:
     """{tag: source} -> {tag: (so, cubin, ptxas log)} in ``out_dir`` (the
     ``kinds`` asked for), every compile started together; raises when one
-    fails."""
+    fails.  The package's csrc/ is on the include path, so a copy of one of
+    its sources elsewhere finds the headers it includes."""
     nvcc = "/usr/local/cuda/bin/nvcc"
-    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-I", _CSRC]
     os.makedirs(out_dir, exist_ok=True)
     jobs = []
     for tag, src in paths.items():
@@ -348,7 +352,9 @@ def main() -> None:
             turns = {n: [] for n in bodies}
             for n in list(bodies) + list(bodies)[::-1]:
                 turns[n].append(cs._cuda_ms(lambda: run(n, rows, mults, planes, bmax), args.reps))
-            device = {n: cs._device_ms(lambda: run(n, rows, mults, planes, bmax), args.reps)
+            device = {n: cs._queued_ms(lambda: run(n, rows, mults, planes, bmax), args.reps)
+                      for n in bodies}
+            traced = {n: cs._device_ms(lambda: run(n, rows, mults, planes, bmax), args.reps)
                       for n in bodies}
             bound = cs._hits_bound(q, int(planes.shape[0]), bmax=bmax)
             nz = q != 0
@@ -357,6 +363,7 @@ def main() -> None:
                 "sum_mean": float(q.sum(1).float().mean()), "sum_max": int(q.sum(1).max()),
                 "mult_above_1_pairs": int((q > 1).sum()), "max_mult": int(q.max()),
                 "identical": identical, "ms_turns": turns, "device_ms": device,
+                "trace_device_ms": traced,
                 "bound_ms": bound[0], "bound_by": bound[1],
                 "issue": cs._hits_issue(q, int(planes.shape[0])),
                 "sass_new": {fn[-24:]: _per_word_row(ins, q) for fn, ins in new_ins.items()},

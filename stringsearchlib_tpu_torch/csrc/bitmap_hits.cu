@@ -12,10 +12,13 @@
 //   hits[b, t] = sum_g qcnt[b, g] * bit(g, t)        int8, term order
 //   bmax[b, c] = max(hits[b, 128c : 128c + 128])     int8 (K1 only)
 //
-// for sum_g qcnt[b, g] <= 127.  Table layout is the reference's plane-tiled,
-// tile-major form: planes (ntiles, Gp, 512) bytes, and bit p of byte k of
-// tile j holds term j*4096 + p*512 + k.  So one 16-byte word of a row slice
-// yields, for each of the 8 bit planes, 16 consecutive terms.
+// for sum_g qcnt[b, g] <= 127.  Table layout is the reference's plane-tiled
+// form, bit p of byte k of tile j holding term j*4096 + p*512 + k, in either
+// of the reference's two shapes: tile-major planes (ntiles, Gp, 512), the
+// resident tables' (the entries above), or row-major (Gp, ntiles * 512)
+// (the *_rowmajor_launch entries).  So one 16-byte word of a row slice
+// yields, for each of the 8 bit planes, 16 consecutive terms.  The counting
+// body lives in bitmap_hits.cuh, shared with the K1 probes (probe_hits.cu).
 //
 // The product is sparse: a query lists ~19 of Gp = 2816 rows on K1's main
 // path (10M terms, B = 512) and ~18 of D = 8192 sketch buckets on K2's.
@@ -64,15 +67,11 @@
 // Every offset is size_t.  The kernel allocates nothing and does not
 // synchronise.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "bitmap_hits.cuh"
 
 namespace {
 
-constexpr int kBlkb = 512;          // bytes per layout tile row
-constexpr int kTileLanes = 8 * kBlkb;  // terms per layout tile
 constexpr int kSubs = kTileLanes / 128;  // 128-term blocks per tile
-constexpr int kWarps = 8;
 constexpr int kQueriesPerBlock = 16;
 
 __device__ __forceinline__ uint32_t byte_max(uint32_t x) {
@@ -81,183 +80,29 @@ __device__ __forceinline__ uint32_t byte_max(uint32_t x) {
   return max(a, b);
 }
 
-__device__ __forceinline__ uint32_t word(const uint4& w, int i) {
-  return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
-}
-
-__device__ __forceinline__ uint4 row_slice(const uint8_t* tile_base, int r) {
-  return __ldg(reinterpret_cast<const uint4*>(tile_base + (size_t)r * kBlkb));
-}
-
-// full adder on 32 bit lanes: s <- s ^ a ^ b; returns the carry (weight 2s)
-__device__ __forceinline__ uint32_t fa(uint32_t& s, uint32_t a, uint32_t b) {
-  const uint32_t t = s;
-  s = t ^ a ^ b;
-  return (t & a) | (t & b) | (a & b);
-}
-
-// adds carry word c at slice L and ripples it up; nothing leaves the top
-// slice, since every count stays below 2^NS
-template <int NS, int L>
-__device__ __forceinline__ void carry_in(uint32_t (&s)[NS], uint32_t c) {
-  static_assert(L < NS, "carry above the top slice");
-#pragma unroll
-  for (int j = L; j < NS - 1; ++j) {
-    const uint32_t t = s[j];
-    s[j] = t ^ c;
-    c = t & c;
-  }
-  s[NS - 1] ^= c;
-}
-
-// swaps bits [d, 2d) of each 2d-bit group of a with bits [0, d) of b's
-__device__ __forceinline__ void swap_bits(uint32_t& a, uint32_t& b, int d,
-                                          uint32_t mask) {
-  const uint32_t t = ((a >> d) ^ b) & mask;
-  b ^= t;
-  a ^= t << d;
-}
-
-// slices (bit j of every count) -> planes (byte k of plane p = the count of
-// bit 8k + p): per byte an 8 x 8 bit transpose
-template <int NS>
-__device__ __forceinline__ void to_planes(const uint32_t (&s)[NS],
-                                          uint32_t (&t)[8]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) t[j] = j < NS ? s[j < NS ? j : 0] : 0u;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) swap_bits(t[j], t[j + 4], 4, 0x0f0f0f0fu);
-#pragma unroll
-  for (int j = 0; j < 8; j += 4) {
-    swap_bits(t[j], t[j + 2], 2, 0x33333333u);
-    swap_bits(t[j + 1], t[j + 3], 2, 0x33333333u);
-  }
-#pragma unroll
-  for (int j = 0; j < 8; j += 2) swap_bits(t[j], t[j + 1], 1, 0x55555555u);
-}
-
-// One query's counts over one tile slice: n1 rows of multiplicity 1 first,
-// then n - n1 rows of higher multiplicity; acc[p][i] = plane p of word i.
-template <int NS>
-__device__ __forceinline__ void count_rows(const uint8_t* tile_base,
-                                           const int32_t* rp,
-                                           const int32_t* mp, int n1, int n,
-                                           uint32_t (&acc)[8][4]) {
-  uint32_t s[4][NS];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < NS; ++j) s[i][j] = 0u;
-  }
-  int v = 0;
-  for (; v + 8 <= n1; v += 8) {
-    const int4 ra = __ldg(reinterpret_cast<const int4*>(rp + v));
-    const int4 rb = __ldg(reinterpret_cast<const int4*>(rp + v + 4));
-    const uint4 x0 = row_slice(tile_base, ra.x), x1 = row_slice(tile_base, ra.y);
-    const uint4 x2 = row_slice(tile_base, ra.z), x3 = row_slice(tile_base, ra.w);
-    const uint4 x4 = row_slice(tile_base, rb.x), x5 = row_slice(tile_base, rb.y);
-    const uint4 x6 = row_slice(tile_base, rb.z), x7 = row_slice(tile_base, rb.w);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint32_t a1 = fa(s[i][0], word(x0, i), word(x1, i));
-      const uint32_t b1 = fa(s[i][0], word(x2, i), word(x3, i));
-      const uint32_t a2 = fa(s[i][1], a1, b1);
-      const uint32_t c1 = fa(s[i][0], word(x4, i), word(x5, i));
-      const uint32_t d1 = fa(s[i][0], word(x6, i), word(x7, i));
-      const uint32_t b2 = fa(s[i][1], c1, d1);
-      carry_in<NS, 3>(s[i], fa(s[i][2], a2, b2));
-    }
-  }
-  if (v + 4 <= n1) {  // v is a multiple of 8 here: aligned
-    const int4 ra = __ldg(reinterpret_cast<const int4*>(rp + v));
-    const uint4 x0 = row_slice(tile_base, ra.x), x1 = row_slice(tile_base, ra.y);
-    const uint4 x2 = row_slice(tile_base, ra.z), x3 = row_slice(tile_base, ra.w);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint32_t a1 = fa(s[i][0], word(x0, i), word(x1, i));
-      const uint32_t b1 = fa(s[i][0], word(x2, i), word(x3, i));
-      carry_in<NS, 2>(s[i], fa(s[i][1], a1, b1));
-    }
-    v += 4;
-  }
-  if (v + 2 <= n1) {  // a multiple of 4: aligned
-    const int2 ra = __ldg(reinterpret_cast<const int2*>(rp + v));
-    const uint4 x0 = row_slice(tile_base, ra.x), x1 = row_slice(tile_base, ra.y);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      carry_in<NS, 1>(s[i], fa(s[i][0], word(x0, i), word(x1, i)));
-    }
-    v += 2;
-  }
-  if (v < n1) {
-    const uint4 x0 = row_slice(tile_base, __ldg(rp + v));
-#pragma unroll
-    for (int i = 0; i < 4; ++i) carry_in<NS, 0>(s[i], word(x0, i));
-    ++v;
-  }
-  for (; v < n; ++v) {  // multiplicity m > 1: add m * word, bit by bit of m
-    const uint32_t m = (uint32_t)__ldg(mp + v);
-    const uint4 x0 = row_slice(tile_base, __ldg(rp + v));
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint32_t w = word(x0, i);
-      uint32_t c = 0u;
-#pragma unroll
-      for (int j = 0; j < NS - 1; ++j) c = fa(s[i][j], (m >> j) & 1u ? w : 0u, c);
-      s[i][NS - 1] ^= ((m >> (NS - 1)) & 1u ? w : 0u) ^ c;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    uint32_t t[8];
-    to_planes<NS>(s[i], t);
-#pragma unroll
-    for (int p = 0; p < 8; ++p) acc[p][i] = t[p];
-  }
-}
-
-template <bool kBmax>
-__global__ void __launch_bounds__(kWarps * 32, 1)
-bitmap_hits_kernel(const uint8_t* __restrict__ planes,
-                   const int32_t* __restrict__ rows,
-                   const int32_t* __restrict__ mults,
-                   int8_t* __restrict__ hits,
-                   int8_t* __restrict__ bmax,
-                   int n_queries, int gp, int ntiles, int vmax) {
+// one block: a (layout tile, group of 16 queries) pair of either layout
+template <bool kBmax, class Layout>
+__device__ __forceinline__ void hits_block(const uint8_t* __restrict__ planes,
+                                           const int32_t* __restrict__ rows,
+                                           const int32_t* __restrict__ mults,
+                                           int8_t* __restrict__ hits,
+                                           int8_t* __restrict__ bmax,
+                                           int n_queries, int ntiles, int vmax,
+                                           const Layout& layout) {
   const int groups = (n_queries + kQueriesPerBlock - 1) / kQueriesPerBlock;
   const int tile = blockIdx.x / groups;
   const int group = blockIdx.x - tile * groups;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const uint8_t* tile_base =
-      planes + (size_t)tile * (size_t)gp * kBlkb + (size_t)lane * 16;
+  const uint8_t* tile_base = planes + layout.tile(tile) + (size_t)lane * 16;
   const size_t hits_row = (size_t)ntiles * kTileLanes;
   const int q_end = min(n_queries, (group + 1) * kQueriesPerBlock);
 
   for (int b = group * kQueriesPerBlock + warp; b < q_end; b += kWarps) {
     const int32_t* rp = rows + (size_t)b * vmax;
     const int32_t* mp = mults + (size_t)b * vmax;
-    // the list's sum, its rows of multiplicity 1 and its length
-    int total = 0, n1 = 0, n = 0;
-    for (int k = lane; k < vmax; k += 32) {
-      const int m = __ldg(mp + k);
-      total += m;
-      n1 += m == 1;
-      n += m != 0;
-    }
-    total = __reduce_add_sync(0xffffffffu, total);
-    n1 = __reduce_add_sync(0xffffffffu, n1);
-    n = __reduce_add_sync(0xffffffffu, n);
     uint32_t acc[8][4];
-    if (total <= 15) {
-      count_rows<4>(tile_base, rp, mp, n1, n, acc);
-    } else if (total <= 31) {
-      count_rows<5>(tile_base, rp, mp, n1, n, acc);
-    } else if (total <= 63) {
-      count_rows<6>(tile_base, rp, mp, n1, n, acc);
-    } else {
-      count_rows<7>(tile_base, rp, mp, n1, n, acc);
-    }
+    count_query(tile_base, layout, rp, mp, vmax, lane, acc);
     int8_t* hout = hits + (size_t)b * hits_row + (size_t)tile * kTileLanes +
                    (size_t)lane * 16;
 #pragma unroll
@@ -278,7 +123,33 @@ bitmap_hits_kernel(const uint8_t* __restrict__ planes,
   }
 }
 
+// the resident tables' tile-major (ntiles, Gp, 512) layout
 template <bool kBmax>
+__global__ void __launch_bounds__(kWarps * 32, 1)
+bitmap_hits_kernel(const uint8_t* __restrict__ planes,
+                   const int32_t* __restrict__ rows,
+                   const int32_t* __restrict__ mults,
+                   int8_t* __restrict__ hits,
+                   int8_t* __restrict__ bmax,
+                   int n_queries, int gp, int ntiles, int vmax) {
+  hits_block<kBmax>(planes, rows, mults, hits, bmax, n_queries, ntiles, vmax,
+                    TileMajor{gp});
+}
+
+// the row-major (Gp, NB) layout, NB = ntiles * 512
+template <bool kBmax>
+__global__ void __launch_bounds__(kWarps * 32, 1)
+bitmap_hits_rowmajor_kernel(const uint8_t* __restrict__ planes,
+                            const int32_t* __restrict__ rows,
+                            const int32_t* __restrict__ mults,
+                            int8_t* __restrict__ hits,
+                            int8_t* __restrict__ bmax,
+                            int n_queries, int gp, int ntiles, int vmax) {
+  hits_block<kBmax>(planes, rows, mults, hits, bmax, n_queries, ntiles, vmax,
+                    Strided{(size_t)ntiles * kBlkb, (size_t)kBlkb});
+}
+
+template <bool kBmax, bool kRowMajor>
 int launch(const void* planes, const void* rows, const void* mults,
            void* hits, void* bmax, int n_queries, int gp, int ntiles,
            int vmax, void* stream) {
@@ -287,8 +158,10 @@ int launch(const void* planes, const void* rows, const void* mults,
   const long long blocks =
       (long long)ntiles * ((n_queries + kQueriesPerBlock - 1) / kQueriesPerBlock);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  bitmap_hits_kernel<kBmax><<<(unsigned)blocks, kWarps * 32, 0,
-                              reinterpret_cast<cudaStream_t>(stream)>>>(
+  auto kernel = kRowMajor ? bitmap_hits_rowmajor_kernel<kBmax>
+                          : bitmap_hits_kernel<kBmax>;
+  kernel<<<(unsigned)blocks, kWarps * 32, 0,
+           reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(planes), static_cast<const int32_t*>(rows),
       static_cast<const int32_t*>(mults), static_cast<int8_t*>(hits),
       static_cast<int8_t*>(bmax), n_queries, gp, ntiles, vmax);
@@ -302,8 +175,8 @@ extern "C" int bitmap_hits_bmax_launch(const void* planes, const void* rows,
                                        const void* mults, void* hits,
                                        void* bmax, int n_queries, int gp,
                                        int ntiles, int vmax, void* stream) {
-  return launch<true>(planes, rows, mults, hits, bmax, n_queries, gp, ntiles,
-                      vmax, stream);
+  return launch<true, false>(planes, rows, mults, hits, bmax, n_queries, gp,
+                             ntiles, vmax, stream);
 }
 
 // K2: hits only
@@ -311,6 +184,26 @@ extern "C" int bitmap_hits_launch(const void* planes, const void* rows,
                                   const void* mults, void* hits,
                                   int n_queries, int gp, int ntiles,
                                   int vmax, void* stream) {
-  return launch<false>(planes, rows, mults, hits, nullptr, n_queries, gp,
-                       ntiles, vmax, stream);
+  return launch<false, false>(planes, rows, mults, hits, nullptr, n_queries,
+                              gp, ntiles, vmax, stream);
+}
+
+// K1 and K2 on a row-major (Gp, ntiles * 512) table
+extern "C" int bitmap_hits_bmax_rowmajor_launch(const void* planes,
+                                                const void* rows,
+                                                const void* mults, void* hits,
+                                                void* bmax, int n_queries,
+                                                int gp, int ntiles, int vmax,
+                                                void* stream) {
+  return launch<true, true>(planes, rows, mults, hits, bmax, n_queries, gp,
+                            ntiles, vmax, stream);
+}
+
+extern "C" int bitmap_hits_rowmajor_launch(const void* planes,
+                                           const void* rows,
+                                           const void* mults, void* hits,
+                                           int n_queries, int gp, int ntiles,
+                                           int vmax, void* stream) {
+  return launch<false, true>(planes, rows, mults, hits, nullptr, n_queries,
+                             gp, ntiles, vmax, stream);
 }

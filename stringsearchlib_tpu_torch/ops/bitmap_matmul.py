@@ -8,9 +8,11 @@ holds term ``j*8*BLKB + p*BLKB + k``; resident tables are tile-major
 ``(ntiles, Gp, BLKB)`` int8 (HostIndex.bitmap_tables).
 
 ``bitmap_hits_bmax`` (K1: hits and 128-term block maxima) and
-``bitmap_hits`` (K2: hits only) keep the reference's contracts and layouts;
-on a CUDA tensor each launches its entry of the hand-written kernel in
-``csrc/bitmap_hits.cu``.  ``gather_rows`` (``out[i] = table[rows[i]]`` along
+``bitmap_hits`` (K2: hits only) keep the reference's contracts and both
+its table layouts, tile-major and row-major ``(Gp, NB)`` (the reference's
+gathered route over row-major tables); on a CUDA tensor each launches its
+entry of the hand-written kernel in ``csrc/bitmap_hits.cu``.
+``gather_rows`` (``out[i] = table[rows[i]]`` along
 the gram axis of either layout) launches ``csrc/gather_rows.cu``, which
 serves both of the reference's TPU gathers: ``gather_rows_dma`` (K3) and
 ``gather_rows_pallas`` (K4) keep their names, row-major contracts and
@@ -103,17 +105,36 @@ def _compact_qcnt(qcnt):
     return rows, mults
 
 
-def _check(qcnt, planes):
-    if planes.ndim != 3 or planes.shape[2] != BLKB:
-        raise ValueError(f"planes must be (ntiles, Gp, {BLKB}), got {tuple(planes.shape)}")
+def table_shape(planes):
+    """(ntiles, Gp) of a packed table in either of the reference's layouts:
+    tile-major (ntiles, Gp, BLKB) or row-major (Gp, NB), NB % BLKB == 0.
+    Raises on any other shape or dtype."""
     if planes.dtype not in (torch.int8, torch.uint8):
         raise TypeError(f"planes must be int8, got {planes.dtype}")
-    if qcnt.ndim != 2 or qcnt.shape[1] != planes.shape[1]:
+    if planes.ndim == 3 and planes.shape[2] == BLKB:
+        return planes.shape[0], planes.shape[1]
+    if planes.ndim == 2 and planes.shape[1] % BLKB == 0:
+        return planes.shape[1] // BLKB, planes.shape[0]
+    raise ValueError(f"planes must be (ntiles, Gp, {BLKB}) or (Gp, NB) with "
+                     f"NB % {BLKB} == 0, got {tuple(planes.shape)}")
+
+
+def tile_columns(planes, t0: int, t1: int):
+    """Layout tiles [t0, t1) of a packed table in either layout as a
+    (Gp, t1 - t0, BLKB) view (the row-major table's own columns)."""
+    if planes.ndim == 3:
+        return planes[t0:t1].permute(1, 0, 2)
+    return planes[:, t0 * BLKB : t1 * BLKB].view(planes.shape[0], t1 - t0, BLKB)
+
+
+def _check(qcnt, planes):
+    _, gp = table_shape(planes)
+    if qcnt.ndim != 2 or qcnt.shape[1] != gp:
         raise ValueError(
             f"qcnt {tuple(qcnt.shape)} does not match planes {tuple(planes.shape)}"
         )
-    if planes.shape[1] % 32:
-        raise ValueError(f"Gp must be a multiple of 32, got {planes.shape[1]}")
+    if gp % 32:
+        raise ValueError(f"Gp must be a multiple of 32, got {gp}")
     if qcnt.device != planes.device:
         raise ValueError(f"qcnt on {qcnt.device}, planes on {planes.device}")
 
@@ -129,9 +150,11 @@ def _cuda_operands(qcnt, planes):
 
 def bitmap_hits_bmax(qcnt, planes):
     """qcnt (B, Gp) gram multiplicities (any numeric dtype; integer values,
-    each row summing to <= 127)  x  planes (ntiles, Gp, BLKB) int8 packed
-    incidence  ->  (hits (B, ntiles*TILE_LANES) int8 in term order,
-    bmax (B, ntiles*32) int8 per-128-term block maxima).
+    each row summing to <= 127)  x  planes, int8 packed incidence in either
+    of the reference's layouts - tile-major (ntiles, Gp, BLKB), as the
+    resident tables are, or row-major (Gp, ntiles*BLKB)  ->  (hits
+    (B, ntiles*TILE_LANES) int8 in term order, bmax (B, ntiles*32) int8
+    per-128-term block maxima).
 
     CUDA tensors launch the K1 kernel; CPU tensors run the plain version."""
     global K1_LAUNCHES, K1_REF_CALLS
@@ -140,7 +163,7 @@ def bitmap_hits_bmax(qcnt, planes):
         K1_REF_CALLS += 1
         return bitmap_hits_bmax_ref(qcnt, planes)
     b = qcnt.shape[0]
-    ntiles, gp, _ = planes.shape
+    ntiles, gp = table_shape(planes)
     hits = torch.empty((b, ntiles * TILE_LANES), dtype=torch.int8,
                        device=planes.device)
     bmax = torch.empty((b, ntiles * _SUBS), dtype=torch.int8,
@@ -149,9 +172,11 @@ def bitmap_hits_bmax(qcnt, planes):
         return hits, bmax
     rows, mults = _cuda_operands(qcnt, planes)
     lib = _lib("bitmap_hits")
+    launch = (lib.bitmap_hits_bmax_launch if planes.ndim == 3
+              else lib.bitmap_hits_bmax_rowmajor_launch)
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
-        err = lib.bitmap_hits_bmax_launch(
+        err = launch(
             planes.data_ptr(), rows.data_ptr(), mults.data_ptr(),
             hits.data_ptr(), bmax.data_ptr(), b, gp, ntiles,
             rows.shape[1], stream,
@@ -164,9 +189,10 @@ def bitmap_hits_bmax(qcnt, planes):
 
 def bitmap_hits(qcnt, planes):
     """qcnt (B, Gp) multiplicities (integer values, each row summing to
-    <= 127)  x  planes (ntiles, Gp, BLKB) int8 packed incidence  ->  hits
-    (B, ntiles*TILE_LANES) int8 in term order: K1's hits without the block
-    maxima (the reference's ``bitmap_hits`` on a tile-major table).
+    <= 127)  x  planes, int8 packed incidence, tile-major (ntiles, Gp, BLKB)
+    or row-major (Gp, ntiles*BLKB)  ->  hits (B, ntiles*TILE_LANES) int8 in
+    term order: K1's hits without the block maxima (the reference's
+    ``bitmap_hits``).
 
     CUDA tensors launch the K2 kernel; CPU tensors run the plain version."""
     global K2_LAUNCHES, K2_REF_CALLS
@@ -175,16 +201,18 @@ def bitmap_hits(qcnt, planes):
         K2_REF_CALLS += 1
         return bitmap_hits_ref(qcnt, planes)
     b = qcnt.shape[0]
-    ntiles, gp, _ = planes.shape
+    ntiles, gp = table_shape(planes)
     hits = torch.empty((b, ntiles * TILE_LANES), dtype=torch.int8,
                        device=planes.device)
     if b == 0 or ntiles == 0:
         return hits
     rows, mults = _cuda_operands(qcnt, planes)
     lib = _lib("bitmap_hits")
+    launch = (lib.bitmap_hits_launch if planes.ndim == 3
+              else lib.bitmap_hits_rowmajor_launch)
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
-        err = lib.bitmap_hits_launch(
+        err = launch(
             planes.data_ptr(), rows.data_ptr(), mults.data_ptr(),
             hits.data_ptr(), b, gp, ntiles, rows.shape[1], stream,
         )
@@ -213,12 +241,12 @@ def bitmap_hits_bmax_ref(qcnt, planes, chunk_tiles: int = 16):
     and a max over each 128-term block."""
     hits = bitmap_hits_ref(qcnt, planes, chunk_tiles)
     b = qcnt.shape[0]
-    bmax = hits.view(b, planes.shape[0] * _SUBS, _BMAX_BLK).amax(dim=2)
+    bmax = hits.view(b, table_shape(planes)[0] * _SUBS, _BMAX_BLK).amax(dim=2)
     return hits, bmax
 
 
 def _hits_plain(qcnt, planes, chunk_tiles):
-    ntiles, gp, _ = planes.shape
+    ntiles, gp = table_shape(planes)
     b = qcnt.shape[0]
     step = max(1, min(chunk_tiles, _PLAIN_CHUNK_BYTES // (4 * gp * TILE_LANES)))
     q = qcnt.to(torch.float32)
@@ -227,9 +255,9 @@ def _hits_plain(qcnt, planes, chunk_tiles):
     shifts = torch.arange(8, dtype=torch.uint8, device=planes.device)
     for t0 in range(0, ntiles, step):
         t1 = min(t0 + step, ntiles)
-        t = planes[t0:t1].view(torch.uint8)  # (nt, Gp, BLKB)
+        t = tile_columns(planes, t0, t1).view(torch.uint8)  # (Gp, nt, BLKB)
         bits = (t[:, :, None, :] >> shifts[None, None, :, None]) & 1
-        m = bits.permute(1, 0, 2, 3).reshape(gp, (t1 - t0) * TILE_LANES)
+        m = bits.reshape(gp, (t1 - t0) * TILE_LANES)
         hits[:, t0 * TILE_LANES : t1 * TILE_LANES] = (
             q @ m.to(torch.float32)
         ).to(torch.int8)

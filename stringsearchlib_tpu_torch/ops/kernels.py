@@ -3,16 +3,17 @@
 Every source ``csrc/<name>.cu`` exports plain C entry points that launch
 its kernel on a given stream and return ``cudaGetLastError()``.  Each
 source is compiled with nvcc for sm_90a into ``build/kernels/lib<name>.so``
-(rebuilt when the source is newer than the library), one nvcc process per
-source, all started together, at the first launch of any kernel; the
-libraries are bound with ctypes.  Nothing here runs when the package is
-imported.
+(rebuilt when the source, or a ``csrc/*.cuh`` header it includes, is newer
+than the library), one nvcc process per source, all started together, at
+the first launch of any kernel; the libraries are bound with ctypes.
+Nothing here runs when the package is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -30,6 +31,18 @@ ARGTYPES = {
     "bitmap_hits": {
         "bitmap_hits_bmax_launch": [_P] * 5 + [_I] * 4 + [_P],
         "bitmap_hits_launch": [_P] * 4 + [_I] * 4 + [_P],
+        "bitmap_hits_bmax_rowmajor_launch": [_P] * 5 + [_I] * 4 + [_P],
+        "bitmap_hits_rowmajor_launch": [_P] * 4 + [_I] * 4 + [_P],
+    },
+    "probe_stream": {
+        # table, r (or null), out, G, ntiles, row stride, tile stride, stream
+        "probe_stream_launch": [_P] * 3 + [_I] * 2 + [_LL] * 2 + [_P],
+    },
+    "probe_hits": {
+        # table, rows, mults, out, B, ntiles, list width, row stride, tile
+        # stride, out query stride, out tile stride, epilogue, queries per
+        # block, stream
+        "probe_hits_launch": [_P] * 4 + [_I] * 3 + [_LL] * 4 + [_I] * 2 + [_P],
     },
     "gather_rows": {
         "gather_rows_launch": [_P] * 3 + [_LL] + [_I] * 3 + [_P],
@@ -51,18 +64,28 @@ ARGTYPES = {
 }
 
 
+def source_mtime(src: str) -> float:
+    """The newest modification time of ``src`` and of the ``csrc/`` headers
+    it includes (``#include "x.cuh"``, one level: the headers include no
+    other header of csrc/)."""
+    with open(src) as f:
+        headers = re.findall(r'^\s*#\s*include\s+"([^"]+)"', f.read(), re.M)
+    return max([os.path.getmtime(src)]
+               + [os.path.getmtime(os.path.join(_CSRC, h)) for h in headers])
+
+
 def build_kernels() -> dict:
     """Compile every ``csrc/<name>.cu`` whose ``build/kernels/lib<name>.so``
-    is missing or older than its source, for sm_90a, one nvcc process per
-    source, all started together.  Returns {name: library path}.  Raises
-    when nvcc is absent or a compile fails."""
+    is missing or older than its source or a header the source includes,
+    for sm_90a, one nvcc process per source, all started together.  Returns
+    {name: library path}.  Raises when nvcc is absent or a compile fails."""
     os.makedirs(_OUT_DIR, exist_ok=True)
     out, jobs = {}, []
     for name in ARGTYPES:
         src = os.path.join(_CSRC, f"{name}.cu")
         so = os.path.abspath(os.path.join(_OUT_DIR, f"lib{name}.so"))
         out[name] = so
-        if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+        if os.path.exists(so) and os.path.getmtime(so) >= source_mtime(src):
             continue
         nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
         if not os.path.exists(nvcc):
@@ -70,7 +93,7 @@ def build_kernels() -> dict:
         tmp = f"{so}.{os.getpid()}.tmp"
         cmd = [
             nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, src,
+            "-O3", "-I", _CSRC, "-shared", "-Xcompiler", "-fPIC", "-o", tmp, src,
         ]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True

@@ -1,8 +1,9 @@
-"""Tests of the PyTorch port that need a CUDA card: the hand-written K1, K2,
-row-gather, edit-distance (K5), table-gather (K6) and postings-expansion
-kernels against their plain versions, and the index build and the search (bitmap-kernel,
-gathered-row, weighted-bitmap, sketch, gram-matrix and sorted-runs routes)
-on the card against the same on the CPU.  They import no jax, so on a machine
+"""Tests of the PyTorch port that need a CUDA card: the hand-written K1, K2
+(both table layouts), row-gather, edit-distance (K5), table-gather (K6),
+postings-expansion and K1-probe (P1-P9) kernels against their plain
+versions, and the index build and the search (bitmap-kernel, gathered-row,
+weighted-bitmap, sketch, gram-matrix and sorted-runs routes) on the card
+against the same on the CPU.  They import no jax, so on a machine
 with a card and no jax they run with
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -502,3 +503,117 @@ def test_gram_hits_on_cuda_match_cpu(cuda, qmax):
         want = pc.gram_hits(slots, gm)
         got = pc.gram_hits(slots.to(cuda), gm.to(cuda))
         assert torch.equal(got.cpu(), want)
+
+
+# -- K1 / K2 on row-major tables, and the K1 probes P1-P9 -------------------
+
+
+@pytest.mark.parametrize("gp,case", [(128, "sum31"), (128, "sum127"), (2816, "mults_127"),
+                                     (2816, "ones_127"), (32, "b33")])
+def test_cuda_k1_k2_row_major_match_plain_version(cuda, gp, case):
+    rng = np.random.default_rng(gp + 7 + len(case))
+    planes = torch.from_numpy(
+        rng.integers(0, 256, size=(gp, 5 * pbm.BLKB), dtype=np.uint8).view(np.int8)
+    ).to(cuda)
+    q = _count_case(rng, case, gp).to(cuda)
+    launches = (pbm.K1_LAUNCHES, pbm.K2_LAUNCHES)
+    hits, bmax = pbm.bitmap_hits_bmax(q, planes)
+    k2 = pbm.bitmap_hits(q, planes)
+    rh, rb = pbm.bitmap_hits_bmax_ref(q, planes)
+    torch.cuda.synchronize()
+    assert (pbm.K1_LAUNCHES, pbm.K2_LAUNCHES) == (launches[0] + 1, launches[1] + 1)
+    assert torch.equal(hits, rh) and torch.equal(bmax, rb) and torch.equal(k2, rh)
+    assert torch.equal(hits, pbm.bitmap_hits(q, pbm.to_tile_major(planes)))
+
+
+def _probe_table(rng, gp, ntiles, kind):
+    """(gp, ntiles * 512) int8: random signed bytes, every bit set, or -128."""
+    if kind == "random":
+        t = rng.integers(-128, 128, size=(gp, ntiles * pbm.BLKB), dtype=np.int8)
+    else:
+        t = np.full((gp, ntiles * pbm.BLKB), -1 if kind == "ones" else -128, np.int8)
+    return torch.from_numpy(t)
+
+
+@pytest.mark.parametrize("gp", [37, 128, 2816])
+@pytest.mark.parametrize("kind", ["random", "ones", "min"])
+def test_cuda_stream_probes_match_plain_version(cuda, gp, kind):
+    from stringsearchlib_tpu_torch.ops import probes
+
+    rng = np.random.default_rng(gp + len(kind))
+    t = _probe_table(rng, gp, 3, kind).to(cuda)
+    t3 = pbm.to_tile_major(t)
+    r = torch.from_numpy(rng.integers(-130, 10, size=(1, pbm.BLKB)).astype(np.int32)).to(cuda)
+    before = dict(probes.LAUNCHES)
+    got = [probes.pl_stream(t), probes.stream_row(t, r), probes.stream_tile(t3, r)]
+    want = [probes.stream_ref(t), probes.stream_ref(t, r), probes.stream_ref(t3, r)]
+    torch.cuda.synchronize()
+    assert [probes.LAUNCHES[p] - before[p] for p in ("P1", "P2", "P3")] == [1, 1, 1]
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("variant", ["row", "tile", "tile_q2", "tile_o3"])
+@pytest.mark.parametrize("total,kind", [(31, "random"), (127, "random"), (127, "ones"),
+                                        (127, "min")])
+def test_cuda_pair_probes_match_plain_version(cuda, variant, total, kind):
+    from stringsearchlib_tpu_torch.ops import probes
+
+    rng = np.random.default_rng(total + len(variant) + len(kind))
+    gp = 2816 if kind == "random" else 128
+    t = _probe_table(rng, gp, 3, kind).to(cuda)
+    if variant != "row":
+        t = pbm.to_tile_major(t)
+    q = _qcnt(rng, 48 if variant == "tile_q2" else 33, gp, min(24, gp), total).to(cuda)
+    probe = probes.PAIR_PROBE[variant]
+    before = probes.LAUNCHES[probe]
+    got = probes.pair(q, t, variant=variant)
+    want = probes.pair_ref(q, t, variant=variant)
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES[probe] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("variant", ["raw16", "raw32", "base", "onedot", "nodecode",
+                                     "onestore", "noand"])
+@pytest.mark.parametrize("layout", ["row", "tile"])
+@pytest.mark.parametrize("total", [31, 127])
+def test_cuda_raw_and_bisect_probes_match_plain_version(cuda, variant, layout, total):
+    from stringsearchlib_tpu_torch.ops import probes
+
+    rng = np.random.default_rng(total + len(variant) + len(layout))
+    t = _probe_table(rng, 2816, 3, "random")
+    t[:4] = -1  # all-bits-set and -128 rows among the random ones
+    t[4:8] = -128
+    t = t.to(cuda)
+    if layout == "tile":
+        t = pbm.to_tile_major(t)
+    q = _qcnt(rng, 33, 2816, 24, total)
+    q[0] = 0
+    q[0, 0], q[0, 4] = total - 2, 2  # every count at the row's sum
+    q = q.to(cuda)
+    probe = "P8" if variant.startswith("raw") and variant != "rawi32" else "P9"
+    before = probes.LAUNCHES[probe]
+    if probe == "P8":
+        got = probes.raw_hits(q, t, i16=variant == "raw16")
+        want = probes.raw_hits_ref(q, t, i16=variant == "raw16")
+    else:
+        got = probes.bisect_run(q, t, variant=variant)
+        want = probes.bisect_ref(q, t, variant=variant)
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES[probe] == before + 1
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_cuda_probe_contracts(cuda):
+    from stringsearchlib_tpu_torch.ops import probes
+
+    t = torch.zeros((128, 2 * pbm.BLKB), dtype=torch.int8, device=cuda)
+    q = torch.ones((4, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        probes.pair(q.cpu(), t, variant="row")  # devices differ
+    with pytest.raises(ValueError):
+        probes.pl_stream(t[:, : pbm.BLKB + 16])  # NB % 512
+    with pytest.raises(ValueError):
+        probes.stream_row(t, torch.zeros((1, pbm.BLKB), dtype=torch.int32))  # r on the CPU
+    assert probes.pl_stream(t).device.type == "cuda"
