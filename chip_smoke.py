@@ -24,7 +24,14 @@ Drives the port's candidate paths on one CUDA card, through
     K2 and the dense-hits finish; and ``wide_100k_g3`` (gram size 3): the
     sorted runs, K6's postings expansion and K5;
   * ``bench.py``'s ``dense_1m`` (1M product names): the gram-matrix route
-    (``torch._int_mm``) with the h* finish, batches and single queries.
+    (``torch._int_mm``) with the h* finish, batches and single queries;
+  * on the 2-D index, the unpacked bucket sketch (``torch._int_mm`` per
+    base-128 digit of the bucket counts): phase 8's queries with the packed
+    sketch switched off, and queries of more than 127 gram windows, which
+    take it by default;
+  * on the 10M-key index, persistence and the flat API: ``save`` /
+    ``load``, ``capi.loadIndex``, ``capi.score`` and ``cabi``'s C function
+    pointers.
 
 It also launches the K1 probes P1-P9 (``ops.probes``, the port of the
 reference's probe tools) at their tools' full shapes while the 10M-key
@@ -32,7 +39,7 @@ table is resident.
 
 Phases, each printing one line with its seconds; any failure raises, so the
 script exits non-zero and prints no final ``ok`` line.  They run in the
-order 1-3, 15, 4-5, 21, 6, 11-12, 7-10, 16, 18-19, 13-14, 17, 20:
+order 1-3, 15, 4-5, 21, 6, 11-12, 23, 7-10, 22, 16, 18-19, 13-14, 17, 20:
 
   1. device: a CUDA card is required; prints nvidia-smi's name and power
      limit;
@@ -50,7 +57,7 @@ order 1-3, 15, 4-5, 21, 6, 11-12, 7-10, 16, 18-19, 13-14, 17, 20:
      Gp = 32, Gp = 8192 with bucket collisions): bit-identical hits and
      block maxima; the random cases again on the row-major form of their
      tables;
-  4. main path: builds the index on the card, runs one warm-up and three
+  4. main path: builds the index on the card (``StringSearchIndex``), runs one warm-up and three
      timed batches of 512 queries, requires the bitmap_kernel + h* route and
      K1 launches; then times 64 single queries;
   5. K1 on the real table: on the whole resident table with real queries'
@@ -130,7 +137,30 @@ order 1-3, 15, 4-5, 21, 6, 11-12, 7-10, 16, 18-19, 13-14, 17, 20:
      layouts; every count set to 0, each case driven once, the counts read;
      then each case held against its plain version and timed (CUDA events
      per call, calls queued behind a spin kernel, the plain version, the
-     bound, ``torch.amax`` for P1-P3).
+     bound, ``torch.amax`` for P1-P3);
+  22. the unpacked sketch on the 2-D index (before it is freed): its table
+     (D, bytes, build seconds); (a) phase 8's 1,024 queries with
+     SKETCH_PACKED off: every candidate pass ``sketch``, ``_int_mm`` calls
+     and no K2, results equal to phase 8's packed-sketch results as tie
+     groups, q/s median of 3, a traced batch; (b) 256 queries of more than 127 gram windows
+     (``_long_queries_2d``, ``random.Random(13)``) with the defaults: every
+     pass ``sketch``, all 256 through the sketch's guard (the rows it sends
+     dense counted), results equal to the dense path's on the first 32 and
+     to the port's pure-Python oracle on 8 (built over the corpus in a
+     spawned process that runs from phase 2 on), q/s, a traced batch; the int32 product
+     held against a float32 one on the whole table, ``_int_mm`` per product
+     at B = 256 and 512 (CUDA events, queued device ms) beside its bound,
+     on the route's column-major table and on a row-major copy;
+  23. persistence and the flat API on the 10M-key index (no rebuild):
+     ``StringSearchIndex.save`` into a directory under ``build/``, ``load``
+     on the card (every array equal), phase 4's batch through the loaded
+     engine (the same routing and tie groups, K1 launched, q/s; then the
+     built and the loaded engine in turns, three rounds),
+     ``capi.loadIndex``, 64 queries through ``capi.score`` with
+     ``QueryMetrics`` attached and 32 through ``cabi.function_table()``'s
+     score / search / release as C function pointers (equal to the batch's
+     results), getSize / getLibSize / dispose; save, load and file bytes
+     beside phase 4's build seconds, and ``index_stats``.
 
 The line before the last is a JSON object describing the TPU kernels'
 ports (K1-K6, the postings expansion, P1-P9); the last line is ``{"ok":
@@ -176,6 +206,7 @@ N_QUERIES_WIDE = 256
 N_1M = 1_000_000  # bench.py dense_1m
 N_SINGLE_1M = 32
 N_BRUTE = 16
+THRESHOLD, LIMIT = 0.3, 100  # the headline's (bench.py)
 # 32-bit integer ops per SM per clock: the Hopper SM's 64 INT32 lanes
 # (NVIDIA H100 Tensor Core GPU Architecture whitepaper, the SM diagram);
 # the data sheet lists no integer rate outside the tensor cores
@@ -1722,6 +1753,394 @@ def _probe_entry(probe: str, line: str, run: dict, edges: dict, ptxas: dict) -> 
     }
 
 
+N_LONG_2D = 256  # > 127-window queries on the 2-D index (phase 22)
+N_LONG_DENSE = 32
+N_LONG_ORACLE = 8
+N_CAPI = 64
+N_CABI = 32
+
+
+def _words_2d(n2: int) -> list:
+    """bench.py's index2d_1m_rows corpus: (product name, gram-rich
+    description) rows, flattened."""
+    import bench
+
+    rows = bench._product_names(n2, seed=5)
+    descs = bench._rich_names(n2, seed=6)
+    return [x for kv in zip(rows, descs) for x in kv]
+
+
+def _long_queries_2d(words2, n: int) -> list:
+    """Queries of more than 127 gram windows (random.Random(13)): two or
+    more mutated name + description pairs joined by spaces, at least 140
+    and at most 250 characters (one 256-wide query group)."""
+    import bench
+
+    rng = random.Random(13)
+    half = len(words2) // 2
+    out = []
+    while len(out) < n:
+        parts: list = []
+        while len(parts) < 4 or len(" ".join(parts)) < 140:
+            r = rng.randrange(half)
+            parts += [bench._mutate(rng, words2[2 * r]), bench._mutate(rng, words2[2 * r + 1])]
+        out.append(" ".join(parts)[:250])
+    return out
+
+
+def _oracle_child(conn, n2: int, n_long: int, n_oracle: int, threshold: float) -> None:
+    """The port's pure-Python oracle over the 2-D corpus, in a process of
+    its own: it rebuilds the corpus and the long queries from their seeds
+    and sends back, for the first ``n_oracle`` of them, every result above
+    ``threshold`` (unbounded)."""
+    from stringsearchlib_tpu_torch.utils.oracle import OracleIndex
+
+    try:
+        words2 = _words_2d(n2)
+        queries = _long_queries_2d(words2, n_long)[:n_oracle]
+        t0 = time.perf_counter()
+        oracle = OracleIndex(words2, row_size=2, weights=[1.0, 0.4] * n2)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        results = [oracle.search(q, threshold, 0) for q in queries]
+        conn.send({"queries": queries, "results": results, "build_s": build_s,
+                   "search_s": time.perf_counter() - t0})
+    except BaseException as e:  # reported to the parent, which raises
+        conn.send({"error": repr(e)})
+    finally:
+        conn.close()
+
+
+class _OracleJob:
+    """``_oracle_child`` started in a spawned process (no CUDA there),
+    running beside the card's phases until its answers are read."""
+
+    def __init__(self, *args):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.conn, child = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=_oracle_child, args=(child, *args), daemon=True)
+        self.proc.start()
+        child.close()
+        self.waited_s = None
+
+    def result(self) -> dict:
+        t0 = time.perf_counter()
+        try:
+            out = self.conn.recv()
+        except EOFError:
+            self.proc.join(60)
+            raise AssertionError(
+                f"the oracle process ended without an answer (exit code "
+                f"{self.proc.exitcode})") from None
+        self.waited_s = time.perf_counter() - t0
+        self.proc.join(60)
+        if "error" in out:
+            raise AssertionError(f"the oracle process failed: {out['error']}")
+        return out
+
+    def stop(self) -> None:
+        if self.proc.is_alive():
+            self.proc.terminate()
+        self.proc.join(60)
+
+
+def _oracle_agrees(got, want_all, limit: int, what: str) -> None:
+    """``got`` (keys, scores) at ``limit`` against the oracle's unbounded
+    (keys, scores): the same (score, key length) tie groups over the
+    oracle's first ``limit`` results, with the same keys; in the last group,
+    which the limit may cut, the engine's keys among the oracle's whole
+    group."""
+    keys_w, sc_w = want_all
+    n = min(limit, len(keys_w))
+    if len(got[0]) != n:
+        raise AssertionError(f"{what}: {len(got[0])} results, the oracle {n}")
+    if n == 0:
+        return
+
+    def group(keys, scores):
+        out: dict = {}
+        for k, v in zip(keys, scores):
+            out.setdefault((round(float(v), 5), len(k)), set()).add(k)
+        return out
+
+    gg, gw = group(*got), group(keys_w[:n], sc_w[:n])
+    last = (round(float(sc_w[n - 1]), 5), len(keys_w[n - 1]))
+    if set(gg) != set(gw):
+        raise AssertionError(f"{what}: tie groups differ from the oracle's")
+    for key, keys in gg.items():
+        if key != last and keys != gw[key]:
+            raise AssertionError(f"{what}: keys of group {key} differ from the oracle's")
+    full = group(keys_w, sc_w)[last]
+    if len(gg[last]) != len(gw[last]) or not gg[last] <= full:
+        raise AssertionError(f"{what}: the last tie group is not the oracle's")
+
+
+def _int_mm_bound(b: int, d: int, tlp: int):
+    """One (B, D) x (D, Tlp) int8 product: the incidence read once and the
+    int32 product written once, against two int8 operations per term."""
+    return _bound(d * tlp + 4 * b * tlp, 2.0 * b * d * tlp, PEAK_INT8)
+
+
+def _sketch_unpacked(engine2, queries2, results2, words2, threshold, limit, dev,
+                     oracle_job) -> dict:
+    """Phase 22: the unpacked sketch on the resident 2-D index.  (a) phase
+    8's queries with SKETCH_PACKED off: every pass ``sketch``, no K2, the
+    results phase 8's packed-sketch results; (b) queries of more than 127
+    gram windows with the defaults: every pass ``sketch`` with int32 counts
+    (two ``torch._int_mm`` digits), the results the dense path's on the
+    first 32, the oracle's on 8.  The product held against a float32 one
+    (exact below 2^24) and timed beside its bound."""
+    import torch
+
+    from stringsearchlib_tpu_torch.search import candidates as pcand
+    from stringsearchlib_tpu_torch.search import sketch as psk
+
+    host2 = engine2.host
+    t1 = time.perf_counter()
+    sku = host2.sketch_tables(engine2.SKETCH_BUDGET, packed=False)
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t1
+    if sku is None:
+        raise AssertionError("no unpacked sketch table for the 2-D index")
+    inc_u, tg_u, _, d_log2_u = sku
+    d, tlp = int(inc_u.shape[0]), int(inc_u.shape[1])
+    out = {"table": {"d": d, "d_log2": d_log2_u, "tl_pad": tlp,
+                     "inc_bytes": int(inc_u.numel()), "inc_shape": list(inc_u.shape),
+                     "column_major": inc_u.stride() == (1, d), "build_s": table_s}}
+
+    def run_checked(queries, what):
+        """One batch with every candidate pass and every query group's
+        guard outcome recorded: (results, what they show)."""
+        _reset_counts()
+        pcand.INT_MM_CALLS = 0
+        groups = []
+        orig = engine2._run_candidate_chunks
+
+        def spy(items, *a):
+            left = orig(items, *a)
+            groups.append((len(items), len(left), dict(engine2.last_routing)))
+            return left
+
+        engine2._run_candidate_chunks = spy
+        try:
+            res, passes = _with_passes(engine2, lambda: engine2.search_batch(
+                queries, threshold, limit, batch_bucket=512))
+            torch.cuda.synchronize()
+        finally:
+            del engine2._run_candidate_chunks
+        counts, mm = _counts(), pcand.INT_MM_CALLS
+        variants = sorted({p[2]["variant"] for p in passes})
+        if variants != ["sketch"] or mm <= 0 or counts["k2"] or counts["k2_plain"]:
+            raise AssertionError(f"{what}: variants {variants}, _int_mm calls {mm}, {counts}")
+        _check_results(res, queries, threshold * 0.4 * (1 - 1e-6), limit)
+        return res, {
+            "passes": len(passes), "variants": variants,
+            "int_mm_calls_per_batch": mm, "counts": counts,
+            # rows the guard passed on the sketch, and rows it sent dense
+            "candidate_rows": sum(g[0] for g in groups),
+            "dense_rows": sum(g[1] for g in groups),
+            "retry_fast": sum(g[2].get("retry_fast", 0) for g in groups),
+            "retry_full": sum(g[2].get("retry_full", 0) for g in groups),
+            "steps": sorted({p[2]["step"] for p in passes}),
+        }
+
+    # (a) phase 8's queries through the unpacked sketch
+    engine2.SKETCH_PACKED = False
+    try:
+        res_a, info_a = run_checked(queries2, "unpacked sketch, phase 8's queries")
+        _same_groups(res_a, results2, "unpacked against packed sketch")
+        _, _, rep_a = _timed_batches(engine2, queries2, threshold, limit)
+        trace_a = _trace(lambda: engine2.search_batch(
+            queries2, threshold, limit, batch_bucket=512))
+    finally:
+        engine2.SKETCH_PACKED = True
+    info_a.update(qps_median=len(queries2) / sorted(rep_a)[1], rep_s=rep_a,
+                  n_queries=len(queries2), traced_batch=trace_a)
+    out["phase8_queries"] = info_a
+
+    # (b) queries of more than 127 windows, with the defaults
+    long_q = _long_queries_2d(words2, N_LONG_2D)
+    items = []
+    for pos, q in enumerate(long_q):
+        qnorm, qlen = engine2._normalize_query(q)
+        items.append((pos, qnorm, qlen, None))
+    _, _, _, slots, _, _, _ = engine2._prep_rows(items, 256)
+    if slots.shape[1] <= 127:
+        raise AssertionError(f"long queries hold {slots.shape[1]} windows")
+    res_b, info_b = run_checked(long_q, "unpacked sketch, long queries")
+    if info_b["candidate_rows"] != N_LONG_2D:
+        raise AssertionError(f"long queries on the sketch route: {info_b}")
+    _, _, rep_b = _timed_batches(engine2, long_q, threshold, limit)
+    trace_b = _trace(lambda: engine2.search_batch(long_q, threshold, limit, batch_bucket=512))
+    _check_exact(engine2, long_q[:N_LONG_DENSE], res_b[:N_LONG_DENSE], threshold, limit)
+    oracle = oracle_job.result()
+    if oracle["queries"] != long_q[:N_LONG_ORACLE]:
+        raise AssertionError("the oracle process drew other queries")
+    for i, want in enumerate(oracle["results"]):
+        _oracle_agrees(res_b[i], want, limit, f"long query {i}")
+    info_b.update(
+        qps_median=N_LONG_2D / sorted(rep_b)[1], rep_s=rep_b, n_queries=N_LONG_2D,
+        traced_batch=trace_b,
+        windows=int(slots.shape[1]), dense_checked=N_LONG_DENSE,
+        oracle_checked=N_LONG_ORACLE, oracle_build_s=oracle["build_s"],
+        oracle_search_s=oracle["search_s"], oracle_wait_s=oracle_job.waited_s,
+    )
+    out["long_queries"] = info_b
+
+    # the product on the card against a float32 product, and timed
+    qs = torch.from_numpy(np_tile(slots, 256)).to(dev)
+    qcnt = psk.query_counts(psk.bucket_of(qs, d_log2_u), d)
+    hits = psk.unpacked_hits(qcnt, inc_u, int(slots.shape[1]))
+    if hits.dtype != torch.int32:
+        raise AssertionError(f"long queries' hits are {hits.dtype}")
+    err = 0
+    for a in range(0, tlp, 1 << 16):
+        want = (qcnt.float() @ inc_u[:, a : a + (1 << 16)].float()).to(torch.int32)
+        err = max(err, _max_abs_err(hits[:, a : a + (1 << 16)], want))
+    if err:
+        raise AssertionError(f"the unpacked product differs from float32: {err}")
+    del hits
+    digit = (qcnt % 128).to(torch.int8)
+    # the same product on a row-major copy of the table, in turns
+    inc_rm = inc_u.contiguous()
+    product = {}
+    for name, q8 in (("b256", digit), ("b512", torch.cat([digit, digit]))):
+        b = int(q8.shape[0])
+        bound = _int_mm_bound(b, d, tlp)
+        product[name] = {
+            "ms": _cuda_ms(lambda: torch._int_mm(q8, inc_u), 5),
+            "device_ms": _queued_ms(lambda: torch._int_mm(q8, inc_u), 5),
+            "row_major_ms": _cuda_ms(lambda: torch._int_mm(q8, inc_rm), 5),
+            "row_major_device_ms": _queued_ms(lambda: torch._int_mm(q8, inc_rm), 5),
+            "bound_ms": bound[0], "bound_by": bound[1], "b": b, "d": d, "tl_pad": tlp,
+        }
+    del inc_rm
+    product["unpacked_hits_b256_two_digits"] = {
+        "ms": _cuda_ms(lambda: psk.unpacked_hits(qcnt, inc_u, int(slots.shape[1])), 3),
+        "device_ms": _queued_ms(
+            lambda: psk.unpacked_hits(qcnt, inc_u, int(slots.shape[1])), 3),
+    }
+    torch.cuda.empty_cache()
+    out["int_mm"] = product
+    out["max_abs_err"] = err
+    return out
+
+
+def _persistence_api(idx, queries, results, routing, build_s, threshold, limit) -> dict:
+    """Phase 23, on the resident 10M-key index: ``StringSearchIndex.save``,
+    ``StringSearchIndex.load`` on the card (arrays held equal), phase 4's
+    batch through the loaded engine (the same routing and results, K1
+    launched), ``capi.loadIndex``, single queries through ``capi.score``
+    with ``QueryMetrics``, and queries through ``cabi.function_table()``
+    called as C function pointers."""
+    import ctypes as ct
+    import shutil
+    import tempfile
+
+    import torch
+
+    from stringsearchlib_tpu_torch import StringSearchIndex
+    from stringsearchlib_tpu_torch.api import cabi, capi
+    from stringsearchlib_tpu_torch.index.arrays import FIELDS
+    from stringsearchlib_tpu_torch.utils import metrics
+
+    os.makedirs(os.path.join(_ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="persist_", dir=os.path.join(_ROOT, "build"))
+    path = os.path.join(tmp, "index.npz")
+    handle = None
+    try:
+        t1 = time.perf_counter()
+        idx.save(path)
+        save_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        loaded = StringSearchIndex.load(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t1
+        for f in FIELDS:
+            a, b = getattr(loaded.host.device, f), getattr(idx.host.device, f)
+            if a.device != b.device or not torch.equal(a, b):
+                raise AssertionError(f"loaded index: {f} differs")
+        _reset_counts()
+        res_l, warm_s, rep_s = _timed_batches(loaded.engine, queries, threshold, limit)
+        counts = _counts()
+        if loaded.engine.last_routing != routing:
+            raise AssertionError(
+                f"loaded index routed {loaded.engine.last_routing}, built {routing}")
+        if counts["k1"] <= 0 or counts["k1_plain"]:
+            raise AssertionError(f"loaded index: {counts}")
+        _same_groups(res_l, results, "loaded against built index")
+
+        def batch_s(engine):
+            t = time.perf_counter()
+            engine.search_batch(queries, threshold, limit, batch_bucket=512)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        # batch seconds in turns (built, loaded, loaded, built), three rounds
+        turns = {"built": [], "loaded": []}
+        for _ in range(3):
+            for k, v in _in_turns({"built": idx.engine, "loaded": loaded.engine},
+                                  batch_s).items():
+                turns[k] += v
+        stats = metrics.index_stats(loaded.host)
+        del loaded, res_l
+        torch.cuda.empty_cache()
+
+        t1 = time.perf_counter()
+        handle = capi.loadIndex(path)
+        torch.cuda.synchronize()
+        capi_load_s = time.perf_counter() - t1
+        entry = capi.GLOBAL_REGISTRY.get(handle)
+        entry.engine.metrics = qm = metrics.QueryMetrics()
+        for i, q in enumerate(queries[:N_CAPI]):
+            if _tie_groups(*capi.score(handle, q, threshold, limit)) != _tie_groups(*results[i]):
+                raise AssertionError(f"capi.score differs from the batch on query {i}")
+        snapshot = qm.snapshot()
+        if snapshot["queries"] != N_CAPI:
+            raise AssertionError(f"QueryMetrics counted {snapshot}")
+
+        tbl = cabi.function_table()
+        fn = {name: ct.cast(addr, type(f)) for name, (f, addr) in tbl.items()}
+        res_p, sc_p = ct.POINTER(ct.c_char_p)(), ct.POINTER(ct.c_float)()
+        t1 = time.perf_counter()
+        for i, q in enumerate(queries[N_CAPI : N_CAPI + N_CABI], N_CAPI):
+            n = fn["score"](handle, q.encode("latin-1"), ct.byref(res_p), ct.byref(sc_p),
+                            ct.c_float(threshold), limit)
+            got = ([res_p[j].decode("latin-1") for j in range(n)], [sc_p[j] for j in range(n)])
+            if res_p[n] is not None or _tie_groups(*got) != _tie_groups(*results[i]):
+                raise AssertionError(f"cabi score differs from the batch on query {i}")
+            fn["release"](handle, res_p, sc_p)
+            if fn["search"](handle, q.encode("latin-1"), ct.byref(res_p),
+                            ct.c_float(threshold), limit) != n:
+                raise AssertionError(f"cabi search counted otherwise on query {i}")
+            fn["release"](handle, res_p, None)
+        cabi_s = time.perf_counter() - t1
+        sizes = (fn["getSize"](handle), fn["getLibSize"](handle))
+        if sizes != (idx.size(), idx.lib_size()):
+            raise AssertionError(f"cabi sizes {sizes}")
+        fn["dispose"](handle)
+        if capi.getSize(handle):
+            raise AssertionError("cabi dispose left the index")
+        handle = None
+        return {
+            "save_s": save_s, "load_s": load_s, "capi_load_s": capi_load_s,
+            "build_s": build_s, "file_bytes": os.path.getsize(path),
+            "loaded_qps_median": len(queries) / sorted(rep_s)[1], "rep_s": rep_s,
+            "warmup_s": warm_s, "in_turns_batch_s": turns,
+            "in_turns_qps_median": {k: len(queries) / sorted(v)[len(v) // 2]
+                                    for k, v in turns.items()}, "loaded_counts": counts, "capi_queries": N_CAPI,
+            "query_metrics": snapshot, "cabi_queries": N_CABI,
+            "cabi_ms_per_query": cabi_s / N_CABI * 1e3, "index_stats": stats,
+        }
+    finally:
+        if handle is not None:
+            capi.dispose(handle)
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--keys", type=int, default=10_000_000)
@@ -1752,12 +2171,26 @@ def main() -> None:
     _phase("device", t0, kind=repr(kind), count=count, torch=torch.__version__,
            cuda=torch.version.cuda)
 
+    # the oracle of phase 22 builds over the 2-D corpus in a process of its
+    # own (no CUDA there) while the card's phases run
+    oracle_job = _OracleJob(args.rows2d, N_LONG_2D, N_LONG_ORACLE, THRESHOLD)
+    try:
+        _phases(args, smi, kind, count, dev, oracle_job)
+    finally:
+        oracle_job.stop()
+
+
+def _phases(args, smi: str, kind: str, count: int, dev, oracle_job) -> None:
+    """Phases 2-23 and the two result lines, on card ``dev``."""
+    import torch
+
     # -- 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
     sys.path.insert(0, _ROOT)
     import numpy as np
 
     import bench
+    from stringsearchlib_tpu_torch import StringSearchIndex
     from stringsearchlib_tpu_torch.config import IndexConfig
     from stringsearchlib_tpu_torch.index import build as buildmod
     from stringsearchlib_tpu_torch.index import native as nativelib
@@ -1862,12 +2295,12 @@ def main() -> None:
     t_corpus = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
-    host = buildmod.build_index(words, 1, None, IndexConfig(), device=dev)
+    idx = StringSearchIndex(words, device=dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t1
     breakdown = dict(buildmod.LAST_BUILD_BREAKDOWN)
+    host, engine = idx.host, idx.engine
     t1 = time.perf_counter()
-    engine = SearchEngine(host)
     bm = host.bitmap_tables(engine.BITMAP_BUDGET)
     torch.cuda.synchronize()
     table_s = time.perf_counter() - t1
@@ -1887,7 +2320,7 @@ def main() -> None:
 
     rng = random.Random(7)
     queries = [bench._mutate(rng, rng.choice(words)) for _ in range(N_QUERIES)]
-    threshold, limit = 0.3, 100
+    threshold, limit = THRESHOLD, LIMIT
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     t1 = time.perf_counter()
@@ -1996,7 +2429,15 @@ def main() -> None:
     print(json.dumps({"gathered_route": gathered, "card": smi}), flush=True)
     _phase("gathered_route", t0, launches=gathered["gather_launches"],
            passes=gathered["passes_by_variant"])
-    del engine, host, bm, table, q, results
+
+    # -- 23. persistence and the flat API on the 10M index -------------------
+    t0 = time.perf_counter()
+    persist = _persistence_api(idx, queries, results, routing, build_s, threshold, limit)
+    print(json.dumps({"persistence_api": persist, "card": smi}), flush=True)
+    _phase("persistence_api", t0, save_s=round(persist["save_s"], 2),
+           load_s=round(persist["load_s"], 2), build_s=round(build_s, 2),
+           loaded_qps=round(persist["loaded_qps_median"], 2))
+    del idx, engine, host, bm, table, q, results
     torch.cuda.empty_cache()
 
     # -- 7. K2 vs plain, random tables -------------------------------------
@@ -2034,10 +2475,7 @@ def main() -> None:
     # -- 8. the weighted 2-D path (bench.py index2d_1m_rows) -------------------
     t0 = time.perf_counter()
     n2 = args.rows2d
-    rows = bench._product_names(n2, seed=5)
-    descs = bench._rich_names(n2, seed=6)
-    words2 = [x for kv in zip(rows, descs) for x in kv]
-    del rows, descs
+    words2 = _words_2d(n2)
     weights2 = np.tile(np.array([1.0, 0.4]), n2)
     t_corpus = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
@@ -2146,6 +2584,17 @@ def main() -> None:
     t0 = time.perf_counter()
     _check_exact(engine2, queries2[:32], results2[:32], threshold, limit)
     _phase("exactness_2d", t0, queries=32)
+
+    # -- 22. the unpacked sketch on the 2-D index ------------------------------
+    t0 = time.perf_counter()
+    unpacked = _sketch_unpacked(engine2, queries2, results2, words2, threshold, limit,
+                                dev, oracle_job)
+    print(json.dumps({"sketch_unpacked": unpacked, "card": smi}), flush=True)
+    _phase("sketch_unpacked", t0, d=unpacked["table"]["d"],
+           qps=round(unpacked["phase8_queries"]["qps_median"], 2),
+           long_qps=round(unpacked["long_queries"]["qps_median"], 2),
+           int_mm_b256_ms=round(unpacked["int_mm"]["b256"]["ms"], 4))
+    host2._sketch_cache.pop(False, None)
     del sk, inc, tg, q, results2
     torch.cuda.empty_cache()
 

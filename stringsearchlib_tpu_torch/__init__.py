@@ -6,15 +6,25 @@ reference's Pallas kernels rewritten by hand for NVIDIA Hopper
 (``csrc/``).  This package imports torch and numpy, never jax.
 
 Ported so far: the index build (native C++ builder, numpy builder, device
-postings, the bit-packed incidence, the packed bucket sketch, the dense
-gram matrix), the batch search's candidate routes in the reference's gate
-order - the gram-matrix product (``matmul``), the sorted runs for tiny
-batches and as the fallback (``tiny_runs``, ``runs``), the bitmap routes
-(K1/K2, the gathered-row route with the row gather K3/K4) and the packed
-sketch (K2) - with their finishes, the dense path, wildcard and
-brute-force-short queries, and the ``StringSearchIndex`` object API.  The
-edit-distance DP (K5) and the postings expansion (K6) run as CUDA kernels
-on every route that needs them.  ROADMAP.md lists what is still to port.
+postings, the bit-packed incidence, the packed and unpacked bucket sketch,
+the dense gram matrix), the batch search's candidate routes in the
+reference's gate order - the gram-matrix product (``matmul``), the sorted
+runs for tiny batches and as the fallback (``tiny_runs``, ``runs``), the
+bitmap routes (K1/K2, the gathered-row route with the row gather K3/K4)
+and the bucket sketch (K2 packed, ``torch._int_mm`` unpacked) - with their
+finishes, the dense path, wildcard and brute-force-short queries, index
+persistence in the reference's ``.npz`` format, and both API styles:
+
+  * :class:`StringSearchIndex` - the pythonic object API, with
+    ``save`` / ``load``;
+  * :mod:`stringsearchlib_tpu_torch.api.capi` - the reference-compatible
+    flat surface (handle- and guid-keyed, ``saveIndex`` / ``loadIndex``),
+    and :mod:`~stringsearchlib_tpu_torch.api.cabi`, its ctypes shim with
+    the reference DLL's C signatures.
+
+The edit-distance DP (K5) and the postings expansion (K6) run as CUDA
+kernels on every route that needs them.  ROADMAP.md lists what is still
+to port.
 
 Every entry point runs on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``); without a card and without that argument it raises.
@@ -78,6 +88,24 @@ class StringSearchIndex:
         if isinstance(chars, str):
             chars = chars.encode("latin-1")
         self.host.set_valid_char(bytes(chars))
+
+    def save(self, path) -> None:
+        """Persist the built index (arrays only; loads skip the build), in
+        the reference's ``.npz`` format."""
+        from .index.serialize import save_index
+
+        save_index(self.host, path)
+
+    @classmethod
+    def load(cls, path, device=None) -> "StringSearchIndex":
+        """Reconstruct an index saved with :meth:`save` (by either package)
+        on ``device``: the CUDA card unless ``device="cpu"``."""
+        from .index.serialize import load_index
+
+        obj = cls.__new__(cls)
+        obj.host = load_index(path, device=device)
+        obj.engine = SearchEngine(obj.host)
+        return obj
 
 
 __all__ = [

@@ -289,21 +289,23 @@ class HostIndex:
 
     def sketch_tables(self, budget_bytes: int = 6 << 30, max_tgw: int = 128,
                       packed: bool = True):
-        """Packed bucket-sketch tables (search.sketch): (inc (tl_pad/4096, D,
-        BLKB) int8 tile-major incidence, tg (tl_pad, TGW) int32 term->gram
-        slots, wmax_pad (tl_pad,) float32 per-term weight bound, d_log2), or
-        None when the long tier is too small or too wide for the path, or
-        D = 128 buckets already pass ``budget_bytes``.
+        """Bucket-sketch tables (search.sketch): (inc, tg (tl_pad, TGW)
+        int32 term->gram slots, wmax_pad (tl_pad,) float32 per-term weight
+        bound, d_log2), or None when the long tier is too small or too wide
+        for the path, or D = 128 buckets already pass ``budget_bytes``.
 
-        The reference's rules: tl_pad is a multiple of 16384 terms; D starts
-        at 2^13 and halves while over budget.  Built on the index's device
-        from the resident token matrix for narrow g <= 3, from numpy gram ids
-        otherwise; cached per index.  Only the packed form is ported (the
-        unpacked one serves queries over 127 gram windows)."""
-        if not packed:
-            raise NotImplementedError("the unpacked sketch is not ported")
-        if self._sketch_cache is not None:
-            sk = self._sketch_cache
+        ``packed``: inc is the plane-tiled (tl_pad/4096, D, BLKB) int8
+        tile-major incidence for K2, D <= 8192.  Otherwise the (D, tl_pad)
+        int8 0/1 incidence for ``torch._int_mm``, D <= 1024.  The
+        reference's rules: tl_pad is a multiple of 16384 terms; D starts at
+        2^13 packed or 2^10 unpacked and halves while over budget.  Built
+        on the index's device from the resident token matrix for narrow
+        g <= 3, from numpy gram ids otherwise; cached per index and mode."""
+        if not isinstance(self._sketch_cache, dict):
+            self._sketch_cache = {}
+        mode = bool(packed)
+        if mode in self._sketch_cache:
+            sk = self._sketch_cache[mode]
             return None if sk is False else sk
         from ..search import sketch as sketchlib
 
@@ -311,20 +313,24 @@ class HostIndex:
         tl = int(d.long_lengths.shape[0])
         g = self.config.gram_size
         tgw = int(d.long_tokens.shape[1]) - g + 1
-        if not self.sketch_fits(budget_bytes, True, max_tgw):
-            self._sketch_cache = False
+        if not self.sketch_fits(budget_bytes, packed, max_tgw):
+            self._sketch_cache[mode] = False
             return None
         tile = sketchlib._TILE
         tl_pad = -(-tl // tile) * tile
-        bytes_per_d = tl_pad // 8
-        d_log2 = 13
+        bytes_per_d = tl_pad // 8 if packed else tl_pad
+        d_log2 = 13 if packed else 10
         while d_log2 > 7 and (1 << d_log2) * bytes_per_d > budget_bytes:
             d_log2 -= 1
         if not self.config.wide and g <= 3:
             gram_ids32 = torch.from_numpy(
                 self.gram_ids.astype(np.int32)
             ).to(d.device)
-            inc, tg = sketchlib.build_sketch_device_packed(
+            builder = (
+                sketchlib.build_sketch_device_packed if packed
+                else sketchlib.build_sketch_device
+            )
+            inc, tg = builder(
                 d.long_tokens, d.long_lengths, gram_ids32, gram_size=g,
                 d_log2=d_log2, tl_pad=tl_pad, tgw=tgw,
             )
@@ -332,23 +338,20 @@ class HostIndex:
             inc, tg = sketchlib.build_sketch_host(
                 d.long_tokens.cpu().numpy(), d.long_lengths.cpu().numpy(),
                 self.lookup_gram_slots, g, self.config.wide, self.vocab,
-                d_log2, tl_pad, tgw, device=d.device,
+                d_log2, tl_pad, tgw, device=d.device, packed=packed,
             )
         ts = int(d.short_lengths.shape[0])
         wmax_pad = torch.zeros(tl_pad, dtype=torch.float32, device=d.device)
         wmax_pad[:tl] = d.term_wmax[ts:]
-        self._sketch_cache = (inc, tg, wmax_pad, d_log2)
-        return self._sketch_cache
+        self._sketch_cache[mode] = (inc, tg, wmax_pad, d_log2)
+        return self._sketch_cache[mode]
 
     def sketch_fits(self, budget_bytes: int = 6 << 30, packed: bool = True,
                     max_tgw: int = 128) -> bool:
-        """Whether the reference's ``sketch_tables(budget_bytes, max_tgw,
-        packed)`` would hold a table, from the shapes alone: a long tier
-        with grams, 1 <= TGW <= max_tgw gram windows per term, and D = 128
-        buckets within the budget (tl_pad / 8 bytes per bucket packed,
-        tl_pad unpacked).  The engine asks it of the unpacked sketch, which
-        is not ported: batches the reference sends there take the dense
-        path, not the sorted runs."""
+        """Whether ``sketch_tables(budget_bytes, max_tgw, packed)`` holds a
+        table, from the shapes alone: a long tier with grams, 1 <= TGW <=
+        max_tgw gram windows per term, and D = 128 buckets within the
+        budget (tl_pad / 8 bytes per bucket packed, tl_pad unpacked)."""
         from ..search import sketch as sketchlib
 
         tl = int(self.device.long_lengths.shape[0])

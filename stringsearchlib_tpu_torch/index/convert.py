@@ -1,11 +1,12 @@
-"""An index's state carried across from the JAX package.
+"""An index's state as named numpy arrays, in both directions.
 
-``host_index_from_arrays`` turns the reference's index state, fetched as
-numpy, into this package's ``HostIndex`` on a chosen device.  It lets a
-test (or a migration) run both engines on one and the same index.  The
-array names are those of the reference's ``.npz`` format
-(``stringsearchlib_tpu.index.serialize``): ``dev_<DeviceIndex field>`` for
-every device array plus the host tables; scalars travel in ``meta``.
+``host_index_from_arrays`` turns an index's state, as numpy, into this
+package's ``HostIndex`` on a chosen device; ``arrays_from_host_index`` is
+its inverse.  The names are those of the reference's ``.npz`` format
+(``stringsearchlib_tpu.index.serialize``, and this package's
+``index.serialize``): ``dev_<DeviceIndex field>`` for every device array
+plus the host tables; scalars travel in ``meta``.  They let a test (or a
+migration) run both packages' engines on one and the same index.
 """
 
 from __future__ import annotations
@@ -100,3 +101,36 @@ def host_index_from_arrays(arrays: dict, meta: dict, device) -> HostIndex:
         host_key_edge_weight=kew,
         uniform_weights=bool(kew.size == 0 or np.all(kew == 1.0)),
     )
+
+
+def arrays_from_host_index(host: HostIndex) -> tuple:
+    """The inverse of ``host_index_from_arrays``: (arrays, meta) of
+    ``host`` as numpy, under the same names (the reference's ``.npz``
+    keys), fetched from the index's device."""
+    arrays = {
+        f"dev_{f}": getattr(host.device, f).cpu().numpy() for f in FIELDS
+    }
+    arrays.update(
+        gram_ids=host.gram_ids,
+        key_tokens=host.key_strings.tokens,
+        key_lengths=host.key_strings.lengths,
+        host_key_norm_tokens=host.host_key_norm_tokens,
+        host_key_norm_lengths=host.host_key_norm_lengths,
+        host_key_edge_counts=host.host_key_edge_counts,
+    )
+    if host.vocab is not None:
+        arrays["vocab_codepoints"] = host.vocab.codepoints
+    cfg = host.config
+    meta = {
+        "gram_size": cfg.gram_size,
+        "wide": cfg.wide,
+        "n_terms": host.n_terms,
+        "max_term_len": host.max_term_len,
+        "indexed": host.indexed,
+        "valid_chars": host.tables.valid_chars,
+        "short_pad": cfg.short_pad,
+        "long_pad": cfg.long_pad,
+        "query_pad": cfg.query_pad,
+        "wide_upper": cfg.wide_upper,
+    }
+    return arrays, meta

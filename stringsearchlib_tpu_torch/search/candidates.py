@@ -924,35 +924,48 @@ def hstar_retry(
 # ---------------------------------------------------------------------------
 
 
-def gram_hits(qslots, gram_matrix):
-    """(B, Qmax) gram slots x (Gp, Tlp) int8 0/1 incidence -> (B, Tlp)
-    int32 hit counts, exact.
+# torch._int_mm calls issued by int_mm_counts (a library product, counted
+# so a run can show a route went through it)
+INT_MM_CALLS = 0
+
+
+def int_mm_counts(qcnt, mat, vmax: int):
+    """(B, K) int32 multiplicities, each at most ``vmax``, x (K, N) int8
+    0/1 matrix -> (B, N) int32 counts, exact.
 
     On the card one ``torch._int_mm`` (int8 x int8 -> int32) per base-128
-    digit of the multiplicities: a gram's multiplicity is at most Qmax, so
-    Qmax <= 127 takes one product (the reference's int8 dot) and wider slot
-    matrices two or more (its int32 dot).  Rows pad to a multiple of 8 past
-    16, as ``_int_mm`` requires; the matrix's Gp and Tlp are multiples of
-    8 already (HostIndex.gram_matrix).  On the CPU one int32 product."""
-    gp = gram_matrix.shape[0]
-    qcnt = query_counts(qslots, gp)
-    if gram_matrix.device.type == "cpu":
-        return qcnt @ gram_matrix.to(torch.int32)
-    b = qcnt.shape[0]
+    digit of the multiplicities: one for ``vmax`` <= 127 (the reference's
+    int8 dot), two up to 16383 (its int32 dot).  Rows pad to a multiple of
+    8 past 16, as ``_int_mm`` requires; K and N must be multiples of 8.
+    On the CPU one int32 product."""
+    global INT_MM_CALLS
+    if mat.device.type == "cpu":
+        return qcnt @ mat.to(torch.int32)
+    b, k = qcnt.shape
     bp = max(-(-b // 8) * 8, 24)
     if bp != b:
-        qcnt = torch.cat([qcnt, qcnt.new_zeros((bp - b, gp))], 0)
+        qcnt = torch.cat([qcnt, qcnt.new_zeros((bp - b, k))], 0)
     hits = None
-    scale, rest = 1, qslots.shape[1]
+    scale, rest = 1, vmax
     while True:
         digit = (qcnt // scale) % 128
-        h = torch._int_mm(digit.to(torch.int8), gram_matrix)
-        hits = h if hits is None else hits + h * scale
+        h = torch._int_mm(digit.to(torch.int8), mat)
+        INT_MM_CALLS += 1
+        hits = h if hits is None else hits.add_(h, alpha=scale)
         rest //= 128
         if rest == 0:
             break
         scale *= 128
     return hits[:b]
+
+
+def gram_hits(qslots, gram_matrix):
+    """(B, Qmax) gram slots x (Gp, Tlp) int8 0/1 incidence -> (B, Tlp)
+    int32 hit counts, exact (``int_mm_counts``: a gram's multiplicity is
+    at most Qmax).  The matrix's Gp and Tlp are multiples of 8
+    (HostIndex.gram_matrix)."""
+    qcnt = query_counts(qslots, gram_matrix.shape[0])
+    return int_mm_counts(qcnt, gram_matrix, int(qslots.shape[1]))
 
 
 def candidates_matmul(

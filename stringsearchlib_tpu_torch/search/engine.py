@@ -21,14 +21,17 @@ selection-only retry on the retained hits (uniform weights), or K1/K2 with
 the blockmax or dense-hits finish (any weights), and for batches of at most
 GATHER_BATCH queries optionally the same over the batch's own gram rows
 (the gathered-row route); for indexes whose packed incidence is over
-budget, K2 over the packed bucket sketch with exact rescoring; else the
-sorted runs (``runs``).  Non-h* routes escalate through one full pass at
-wider budgets.  Rows whose exactness guard still fails take the dense path,
-whose short tier and brute tier run the edit-distance kernel K5 and whose
-postings expansion runs K6.
+budget, the bucket sketch with exact rescoring (K2 over the packed sketch,
+or ``torch._int_mm`` over the unpacked one for queries of more than 127
+gram windows); else the sorted runs (``runs``).  Non-h* routes escalate
+through one full pass at wider budgets.  Rows whose exactness guard still
+fails take the dense path, whose short tier and brute tier run the
+edit-distance kernel K5 and whose postings expansion runs K6.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -279,6 +282,8 @@ class SearchEngine:
         self._wildcard_cache: dict = {}
         # resolved routing of the most recent candidate pass
         self.last_routing: dict = {}
+        # optional observability (utils.metrics.QueryMetrics); None = off
+        self.metrics = None
 
     def _t(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -322,6 +327,12 @@ class SearchEngine:
     def search(self, query, threshold: float = 0.0, limit: int = 0):
         """Returns (result key strings, scores); limit 0 = unbounded
         (nGramSearch.hpp:454-455)."""
+        if self.metrics is not None:
+            t0 = time.perf_counter()
+            try:
+                return self._search_impl(query, threshold, limit)
+            finally:
+                self.metrics.record(time.perf_counter() - t0)
         return self._search_impl(query, threshold, limit)
 
     def _search_impl(self, query, threshold: float = 0.0, limit: int = 0):
@@ -418,6 +429,14 @@ class SearchEngine:
         large indexes (exact results; rows whose exactness guard fails are
         recomputed densely), "dense" forces the dense batch, "candidates"
         forces the candidate path where eligible."""
+        if self.metrics is not None:
+            t0 = time.perf_counter()
+            try:
+                return self._search_batch_impl(
+                    queries, threshold, limit, batch_bucket, qp_bucket, mode
+                )
+            finally:
+                self.metrics.record(time.perf_counter() - t0, len(queries))
         return self._search_batch_impl(
             queries, threshold, limit, batch_bucket, qp_bucket, mode
         )
@@ -692,8 +711,10 @@ class SearchEngine:
     HSTAR_KB2 = 1024
     # kept-block fill target (x limit); 0 = keep every block the budget fits
     HSTAR_FILL = 0
-    # device-memory budget for the packed bucket sketch (search.sketch); D
-    # shrinks to fit, floor 128 buckets
+    # device-memory budget for the bucket sketch (search.sketch); D shrinks
+    # to fit, floor 128 buckets.  SKETCH_PACKED takes the packed sketch
+    # (K2) for queries of <= 127 gram windows; the rest, or every batch
+    # without it, take the unpacked one (torch._int_mm)
     SKETCH_BUDGET = 6 << 30
     SKETCH_MIN_TERMS = 200_000
     SKETCH_PACKED = True
@@ -868,13 +889,16 @@ class SearchEngine:
             dense-hits finish.  As in the reference, h* eligibility forces
             ``fused_bmax`` before the lane-space check can turn h* off;
           * the packed table does not fit, the index holds >=
-            SKETCH_MIN_TERMS terms, queries hold <= 127 gram windows and the
-            sketch fits SKETCH_BUDGET: ``sketch_packed``, K2 over the packed
-            bucket sketch and exact rescoring;
+            SKETCH_MIN_TERMS terms and the sketch fits SKETCH_BUDGET: with
+            SKETCH_PACKED and queries of <= 127 gram windows
+            ``sketch_packed``, K2 over the packed bucket sketch; else (or
+            when the packed table does not fit) ``sketch``, one
+            ``torch._int_mm`` per base-128 digit of the bucket counts over
+            the unpacked sketch; both then rescore exactly;
           * none of these: ``runs``, the sorted-runs route.
 
-        Batches the reference sends to routes the port does not have - the
-        unpacked sketch and the bitmap scan (more than 127 windows) - go to
+        Batches of more than 127 windows whose packed table fits - the
+        reference's ``bitmap_scan``, which the port does not carry - go to
         the dense path unchanged: a routing decision with the same results,
         independent of the device.
         Returns (rows for the dense path, n_cand, selectable lanes, retry
@@ -906,19 +930,21 @@ class SearchEngine:
             and s_cap <= self.RUNS_TINY_LANES
         )
         bm = sk = None
-        unported = False  # the bitmap scan or the unpacked sketch
+        sk_packed = False
+        bitmap_scan = False  # the reference's bitmap_scan: not ported
         if gm is None and not tiny_runs:
             if int8_counts:
                 bm = self.host.bitmap_tables(self.BITMAP_BUDGET)
             elif self.host.bitmap_fits(self.BITMAP_BUDGET):
-                unported = True
-            if (bm is None and not unported
+                bitmap_scan = True
+            if (bm is None and not bitmap_scan
                     and self.host.n_terms >= self.SKETCH_MIN_TERMS):
-                if int8_counts and self.SKETCH_PACKED:
+                sk_packed = self.SKETCH_PACKED and int8_counts
+                if sk_packed:
                     sk = self.host.sketch_tables(self.SKETCH_BUDGET)
-                unported = sk is None and self.host.sketch_fits(
-                    self.SKETCH_BUDGET, packed=False
-                )
+                if sk is None:
+                    sk_packed = False
+                    sk = self.host.sketch_tables(self.SKETCH_BUDGET, packed=False)
         gplan = None
         bm_hstar = gm_hstar = False
         if gm is not None:
@@ -946,16 +972,16 @@ class SearchEngine:
             )
             bm_hstar = uniform_hstar and n_lanes >= 4 * hs_kb2 * _BLK
         elif sk is not None:
-            variant = "sketch_packed"
+            variant = "sketch_packed" if sk_packed else "sketch"
             n_lanes = short_lanes + tl
-            # the reference's sketch budget; the port holds the int8 hits
-            # and ~14 B per kept block lane, its block maxima built in
-            # fixed-size slabs (search.sketch)
+            # the reference's sketch budget, both forms; the port holds the
+            # hits and ~14 B per kept block lane, its block maxima and the
+            # unpacked product built in fixed-size slabs (search.sketch)
             per_q = (
                 3 * int(sk[1].shape[0]) + 24 * n_edge + 48 * short_lanes
                 + (1 << 16)
             )
-        elif unported:
+        elif bitmap_scan:
             variant = "dense"
             n_lanes = short_lanes + tl
         else:
@@ -1055,7 +1081,7 @@ class SearchEngine:
                     d_log2=d_log2, compute_short=compute_short,
                     n_cand=min(n_cand, kb * 128),
                     n_short_cand=n_short_cand, ksb=ksb, kb=kb,
-                    n_edge=n_edge, top_k=top_k,
+                    n_edge=n_edge, top_k=top_k, packed=sk_packed,
                 )
         else:
 

@@ -1,33 +1,36 @@
-"""Packed bucket-sketch candidate search for long tiers too big for the
-exact packed bitmap.
+"""Bucket-sketch candidate search for long tiers too big for the exact
+packed bitmap.
 
-PyTorch counterpart of ``stringsearchlib_tpu.search.sketch`` in its packed
-form.  The contraction axis shrinks from G grams to D = 2^k hashed buckets:
+PyTorch counterpart of ``stringsearchlib_tpu.search.sketch``.  The
+contraction axis shrinks from G grams to D = 2^k hashed buckets:
 
   inc[d, t] = 1  iff term t has >= 1 distinct gram hashing to bucket d
-  hits_h    = qcnt_h (B, D) x inc (D, Tl)       kernel K2 (ops.bitmap_matmul)
+  hits_h    = qcnt_h (B, D) x inc (D, Tl)
 
-``hits_h`` over-counts (collisions only add), so ``u = wmax * hits_h / nqg``
-is a sound upper bound on every term's weighted score.  Candidates are
-selected hierarchically on that bound (128-lane block maxima -> 128-block
+in one of two forms: packed (the incidence plane-tiled, 8 terms a byte,
+through kernel K2 of ops.bitmap_matmul; int8 counts, so queries of at most
+127 gram windows) or unpacked (a (D, Tl) int8 0/1 matrix, D <= 1024,
+through ``torch._int_mm``, one product per base-128 digit of the counts:
+the reference's XLA dot, any query width).  ``hits_h`` over-counts
+(collisions only add), so ``u = wmax * hits_h / nqg`` is a sound upper
+bound on every term's weighted score.  Candidates are selected
+hierarchically on that bound (128-lane block maxima -> 128-block
 superblock maxima -> top-k down the levels, each level's dropped maximum
 joining the guard bound), then re-scored exactly from the term->gram table
 ``tg`` ((Tl, TGW) distinct gram slots per term) and handed to the shared
 back half ``candidates._finish_selected``.  Results equal the dense path's
 whenever the exactness guard passes; the host retries otherwise.
 
-The incidence is written straight into its tile-major (Tl/4096, D, 512)
-residency from ``tg``; the reference builds it row-major and transposes,
-holding both copies at once.
+The packed incidence is written straight into its tile-major (Tl/4096, D,
+512) residency from ``tg``; the reference builds it row-major and
+transposes, holding both copies at once.  The unpacked one is set byte by
+byte from ``tg`` in place of the reference's per-term bit mask, and held
+column-major, the layout cuBLASLt's int8 tensor-core GEMM takes.
 
 Ties: ``torch.topk`` does not prefer the lower index among equal values
 where ``lax.top_k`` does.  ``_sel_bound`` keeps the guard sound either way;
 only where a tie straddles a selection cutoff can the two packages select
 different equal-valued lanes, and so differ in a row's exact flag.
-
-Not ported (ROADMAP): the unpacked sketch (``build_sketch_device`` and its
-dense dot), used by the reference when a query holds more than 127 gram
-windows.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ import torch
 from ..core import grams as gramlib
 from ..ops.bitmap_matmul import BLKB, TILE_LANES, bitmap_hits, plane_coords
 from .candidates import (
-    _f32, _finish_selected, _short_tier, query_counts, topk_chunked,
+    _f32, _finish_selected, _short_tier, int_mm_counts, query_counts,
+    topk_chunked,
 )
 
 _NEG_INF = float("-inf")
@@ -56,6 +60,8 @@ _TILE = _BLK * _SUPER  # term padding quantum (16384)
 _SLAB_BYTES = 256 << 20
 # terms per step of the incidence scatter
 _PACK_TERMS = 1 << 20
+# bytes of int32 product per torch._int_mm call of the unpacked sketch
+_MM_SLAB_BYTES = 1 << 30
 
 
 def bucket_of(slots, d_log2: int):
@@ -151,6 +157,41 @@ def pack_sketch(tg, d_log2: int):
     return words.view(torch.int8).view(ntiles, d, BLKB)
 
 
+def unpack_sketch(tg, d_log2: int):
+    """``tg`` (tl_pad, TGW) distinct gram slots -> the unpacked bucket
+    incidence, (D, tl_pad) int8 0/1 on ``tg``'s device: element (d, t) is
+    1 iff a slot of term t hashes to bucket d (the reference's
+    ``build_sketch_device`` output).  Stored column-major, as the
+    transpose of a (tl_pad, D) tensor: ``torch._int_mm`` (cuBLASLt) runs
+    its int8 tensor-core GEMM on a column-major right operand and a WMMA
+    kernel about 4x slower on a row-major one (chip_smoke.py phase 22).
+    Set in steps of _PACK_TERMS terms."""
+    tl_pad = tg.shape[0]
+    d = 1 << d_log2
+    store = torch.zeros((tl_pad, d), dtype=torch.int8, device=tg.device)
+    flat = store.view(-1)
+    for t0 in range(0, tl_pad, _PACK_TERMS):
+        bk = bucket_of(tg[t0 : t0 + _PACK_TERMS], d_log2).to(torch.int64)
+        term = torch.arange(
+            t0, t0 + bk.shape[0], dtype=torch.int64, device=tg.device
+        )[:, None]
+        flat.index_fill_(0, (term * d + bk)[bk >= 0], 1)
+        del bk, term
+    return store.t()
+
+
+def build_sketch_device(long_tokens, long_lengths, gram_ids32, *,
+                        gram_size: int, d_log2: int, tl_pad: int, tgw: int):
+    """Unpacked sketch tables for the narrow g <= 3 case, built on the
+    tokens' device: (inc (D, tl_pad) int8 0/1, tg (tl_pad, tgw) int32), as
+    the reference's ``build_sketch_device``."""
+    tg = _term_gram_slots(
+        long_tokens, long_lengths, gram_ids32, gram_size=gram_size,
+        tl_pad=tl_pad, tgw=tgw,
+    )
+    return unpack_sketch(tg, d_log2), tg
+
+
 def build_sketch_device_packed(long_tokens, long_lengths, gram_ids32, *,
                                gram_size: int, d_log2: int, tl_pad: int,
                                tgw: int):
@@ -167,18 +208,19 @@ def build_sketch_device_packed(long_tokens, long_lengths, gram_ids32, *,
 
 def build_sketch_host(long_tokens: np.ndarray, long_lengths: np.ndarray,
                       lookup_gram_slots, gram_size: int, wide: bool, vocab,
-                      d_log2: int, tl_pad: int, tgw: int, device):
+                      d_log2: int, tl_pad: int, tgw: int, device,
+                      packed: bool = True):
     """Sketch tables for wide strings / g = 4 (where the device pack of
-    gram ids does not apply): ``tg`` from numpy gram ids, then the same
-    tile-major packing on ``device``.  Same outputs as
-    build_sketch_device_packed."""
+    gram ids does not apply): ``tg`` from numpy gram ids, then the
+    incidence on ``device``, packed tile-major (as
+    build_sketch_device_packed) or unpacked (as build_sketch_device)."""
     gids, gvalid = gramlib.gram_ids(
         long_tokens, long_lengths, gram_size, wide, vocab
     )
     slots = lookup_gram_slots(gids.ravel()).reshape(gids.shape)
     slots = np.where(gvalid & (slots >= 0), slots, 2**30).astype(np.int64)
     tg = _finish_tg(torch.from_numpy(slots).to(device), tl_pad, tgw)
-    return pack_sketch(tg, d_log2), tg
+    return (pack_sketch(tg, d_log2) if packed else unpack_sketch(tg, d_log2)), tg
 
 
 def pack_inc_np(inc: np.ndarray) -> np.ndarray:
@@ -225,10 +267,45 @@ def _sel_bound(vec, vmin, k: int):
     return torch.where(n_ge <= k, nxt, vmin)
 
 
+def unpacked_hits(qcnt, inc, vmax: int):
+    """(B, D) int32 bucket counts, each at most ``vmax``, x (D, Tlp) int8
+    0/1 incidence -> (B, Tlp) exact hit counts in the reference's
+    ``cnt_dtype``: int8 when ``vmax`` <= 127, else int32.
+
+    ``candidates.int_mm_counts`` (on the card one ``torch._int_mm`` per
+    base-128 digit of the counts; the reference leaves this product to XLA
+    outside any Pallas kernel) over column slabs of at most _MM_SLAB_BYTES
+    of int32 product; a column-major ``inc`` (``unpack_sketch``'s) keeps
+    each slab contiguous."""
+    b, d = qcnt.shape
+    tlp = inc.shape[1]
+    out = torch.empty(
+        (b, tlp), dtype=torch.int8 if vmax <= 127 else torch.int32,
+        device=inc.device,
+    )
+    rows = max(-(-b // 8) * 8, 24) if inc.device.type == "cuda" else b + d
+    cols = max(_TILE, _MM_SLAB_BYTES // (4 * rows) // _TILE * _TILE)
+    for a in range(0, tlp, cols):
+        out[:, a : a + cols] = int_mm_counts(qcnt, inc[:, a : a + cols], vmax)
+    return out
+
+
+def sketch_hits(qslots, inc, d_log2: int, packed: bool):
+    """(B, Qmax) gram slots -> (B, Tlp) upper-bound hit counts over the
+    sketch: the query's bucket multiplicities times the incidence, through
+    K2 (packed; int8, Qmax <= 127) or ``unpacked_hits`` (int8 or int32 by
+    Qmax, the reference's ``cnt_dtype``)."""
+    qcnt = query_counts(bucket_of(qslots, d_log2), 1 << d_log2)
+    if packed:
+        return bitmap_hits(qcnt, inc)
+    return unpacked_hits(qcnt, inc, int(qslots.shape[1]))
+
+
 def _sketch_blockmax(hits, nqg, nqg_f, wmax_pad, thr):
-    """(B, Tlp) int8 sketch hits -> (B, Tlp/128) float32 maxima of the
-    score bound ``wmax * hits / nqg`` over passing lanes (-inf elsewhere),
-    computed a slab of lanes at a time."""
+    """(B, Tlp) int8 or int32 sketch hits -> (B, Tlp/128) float32 maxima of
+    the score bound ``wmax * (hits / nqg)`` (float32 divide, then multiply,
+    as the reference) over passing lanes (-inf elsewhere), computed a slab
+    of lanes at a time."""
     b, tlp = hits.shape
     out = torch.empty((b, tlp // _BLK), dtype=torch.float32, device=hits.device)
     slab = max(_BLK, (_SLAB_BYTES // (4 * max(b, 1))) // _BLK * _BLK)
@@ -245,7 +322,7 @@ def _sketch_blockmax(hits, nqg, nqg_f, wmax_pad, thr):
 
 def candidates_sketch(
     di,
-    inc,  # (Tlp/4096, D, BLKB) int8 tile-major packed bucket incidence
+    inc,  # packed: (Tlp/4096, D, BLKB) int8 tile-major; else (D, Tlp) int8
     tg,  # (Tlp, TGW) int32 distinct gram slots per term
     wmax_pad,  # (Tlp,) float32 per-long-term max edge weight (0 padded)
     pt,  # (T, 4) int32 primary-edge records
@@ -269,12 +346,13 @@ def candidates_sketch(
     kb: int,
     n_edge: int,
     top_k: int,
+    packed: bool = True,
 ):
-    """The reference's ``candidates_sketch_impl(..., packed=True)`` with its
-    per-query body written out over the batch axis.  Bucket counts need
+    """The reference's ``candidates_sketch_impl`` with its per-query body
+    written out over the batch axis.  The packed form's bucket counts need
     every query to hold <= 127 gram windows (K2's contract), which the
-    engine gates on the slot-matrix width.  Returns _finish_selected's
-    tuple."""
+    engine gates on the slot-matrix width; the unpacked form takes any
+    width.  Returns _finish_selected's tuple."""
     ts, tl = di.n_short, di.n_long
     compute_short = compute_short and ts > 0
     b = qtokens.shape[0]
@@ -283,8 +361,7 @@ def candidates_sketch(
     sb = nb // _SUPER
     thr = _f32(threshold)
 
-    qcnt = query_counts(bucket_of(qslots, d_log2), 1 << d_log2)
-    hits = bitmap_hits(qcnt, inc)  # (B, Tlp) int8 upper-bound counts
+    hits = sketch_hits(qslots, inc, d_log2, packed)  # (B, Tlp) upper bounds
     nqg = n_qgrams.to(torch.int32)
     nq_f = torch.clamp(nqg.to(torch.float32), min=1.0)
     blockmax = _sketch_blockmax(hits, nqg, nq_f, wmax_pad, thr)

@@ -2,8 +2,10 @@
 (both table layouts), row-gather, edit-distance (K5), table-gather (K6),
 postings-expansion and K1-probe (P1-P9) kernels against their plain
 versions, and the index build and the search (bitmap-kernel, gathered-row,
-weighted-bitmap, sketch, gram-matrix and sorted-runs routes) on the card
-against the same on the CPU.  They import no jax, so on a machine
+weighted-bitmap, packed and unpacked sketch, gram-matrix and sorted-runs
+routes) on the card against the same on the CPU; ``torch._int_mm`` of the
+unpacked sketch against the CPU product; save/load and the C ABI on the
+card.  They import no jax, so on a machine
 with a card and no jax they run with
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -617,3 +619,115 @@ def test_cuda_probe_contracts(cuda):
     with pytest.raises(ValueError):
         probes.stream_row(t, torch.zeros((1, pbm.BLKB), dtype=torch.int32))  # r on the CPU
     assert probes.pl_stream(t).device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# the unpacked sketch (torch._int_mm), persistence and the C ABI on the card
+# ---------------------------------------------------------------------------
+
+
+def test_cuda_unpacked_hits_digits_and_slabs(cuda, monkeypatch):
+    """One and two base-128 digits of the bucket counts, over column slabs
+    of the incidence (strided views), exact against the CPU product."""
+    from stringsearchlib_tpu_torch.search import sketch as psk
+
+    rng = np.random.default_rng(3)
+    inc = torch.from_numpy(rng.integers(0, 2, size=(256, 3 * psk._TILE), dtype=np.int8))
+    for b, vmax in ((5, 127), (40, 127), (33, 300), (256, 16383)):
+        q = torch.from_numpy(rng.integers(0, vmax + 1, size=(b, 256)).astype(np.int32))
+        if vmax == 127:
+            q = q % 2
+        want = psk.unpacked_hits(q, inc, vmax)
+        # row-major, and column-major as unpack_sketch stores it
+        for inc_d in (inc.to(cuda), inc.t().contiguous().to(cuda).t()):
+            for slab in (1 << 30, 4 * 24 * psk._TILE):
+                monkeypatch.setattr(psk, "_MM_SLAB_BYTES", slab)
+                calls = pc.INT_MM_CALLS
+                got = psk.unpacked_hits(q.to(cuda), inc_d, vmax)
+                torch.cuda.synchronize()
+                assert pc.INT_MM_CALLS > calls
+                assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+
+
+def test_unpacked_sketch_route_on_cuda_matches_cpu(cuda):
+    from stringsearchlib_tpu_torch.search import sketch as psk
+
+    rng = random.Random(11)
+    words, weights = [], []
+    for w in _corpus(2400, seed=19):
+        words += [w, w[::-1] + rng.choice(["ka", "lo", "nor"])]
+        weights += [1.0, 0.4]
+    engines = []
+    for dev in ("cpu", cuda):
+        host = build_index(words, 2, weights, IndexConfig(), device=dev)
+        eng = SearchEngine(host)
+        eng.GM_BUDGET = eng.BITMAP_BUDGET = 0
+        eng.SKETCH_MIN_TERMS = eng.CAND_MIN_TERMS = 0
+        eng.RUNS_TINY_BATCH = 0
+        eng.SKETCH_PACKED = False
+        engines.append(eng)
+    short = [w[:-1] + "x" for w in rng.sample(words, 40)]
+    long_q = [" ".join(rng.sample(words, 14)) for _ in range(20)]
+    for queries in (short, long_q):
+        calls = pc.INT_MM_CALLS
+        got = engines[1].search_batch(queries, 0.3, 10, mode="candidates")
+        assert pc.INT_MM_CALLS > calls
+        assert engines[1].last_routing["variant"] == "sketch"
+        assert got == engines[0].search_batch(queries, 0.3, 10, mode="candidates")
+        dense = engines[1].search_batch(queries, 0.3, 10, mode="dense")
+        for g, d in zip(got, dense):
+            assert sorted(zip(g[1], g[0])) == sorted(zip(d[1], d[0]))
+    for a, b in zip(engines[0].host.sketch_tables(packed=False),
+                    engines[1].host.sketch_tables(packed=False)):
+        assert a == b if isinstance(a, int) else torch.equal(a, b.cpu())
+    assert engines[1].host.sketch_tables(packed=False)[0].stride()[0] == 1
+
+
+def test_save_load_round_trip_on_cuda(cuda, tmp_path):
+    from stringsearchlib_tpu_torch import StringSearchIndex
+
+    words = _corpus(3000, seed=23)
+    idx = StringSearchIndex(words, device=cuda)
+    path = tmp_path / "idx.npz"
+    idx.save(path)
+    on_card = StringSearchIndex.load(path)
+    on_cpu = StringSearchIndex.load(path, device="cpu")
+    assert on_card.host.device.device.type == "cuda"
+    for f in FIELDS:
+        a = getattr(idx.host.device, f)
+        assert torch.equal(getattr(on_card.host.device, f), a), f
+        assert torch.equal(getattr(on_cpu.host.device, f), a.cpu()), f
+    queries = [w[:-1] + "q" for w in words[:64]]
+    want = idx.engine.search_batch(queries, 0.3, 10)
+    assert on_card.engine.search_batch(queries, 0.3, 10) == want
+    assert on_cpu.engine.search_batch(queries, 0.3, 10) == want
+    assert on_card.score(words[5], 0.5) == idx.score(words[5], 0.5)
+
+
+def test_cabi_function_table_on_cuda(cuda, tmp_path):
+    import ctypes as ct
+
+    from stringsearchlib_tpu_torch.api import cabi, capi
+
+    words = [w.encode() for w in _corpus(400, seed=29)]
+    arr = (ct.c_char_p * len(words))(*words)
+    tbl = cabi.function_table()
+    index_n = ct.cast(tbl["indexN"][1], cabi._INDEXN_SIG)
+    score = ct.cast(tbl["score"][1], cabi._SCORE_SIG)
+    h = index_n(arr, len(words), 1, None)
+    entry = capi.GLOBAL_REGISTRY.get(h)
+    assert entry.host.device.device.type == "cuda"
+    res = ct.POINTER(ct.c_char_p)()
+    sc = ct.POINTER(ct.c_float)()
+    n = score(h, words[3], ct.byref(res), ct.byref(sc), ct.c_float(0.5), 0)
+    want = capi.score(h, words[3].decode(), 0.5, 0)
+    assert [res[i].decode() for i in range(n)] == want[0]
+    assert [sc[i] for i in range(n)] == pytest.approx(want[1])
+    ct.cast(tbl["release"][1], cabi._RELEASE_SIG)(h, res, sc)
+    assert capi.saveIndex(h, tmp_path / "c.npz")
+    h2 = capi.loadIndex(tmp_path / "c.npz")
+    assert capi.GLOBAL_REGISTRY.get(h2).host.device.device.type == "cuda"
+    assert capi.score(h2, words[3].decode(), 0.5, 0) == want
+    ct.cast(tbl["dispose"][1], cabi._DISPOSE_SIG)(h)
+    capi.dispose(h2)
+    assert capi.getSize(h) == 0

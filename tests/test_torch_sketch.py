@@ -181,12 +181,17 @@ def test_host_build_matches_jax(cfg):
 
 
 def test_sketch_tables_declines():
-    """None when even 128 buckets pass the budget; the unpacked form is
-    not ported."""
+    """None when even 128 buckets pass the budget, in each form (8x the
+    bytes per bucket unpacked); each form is cached apart."""
     ph = pbuild(_corpus(600, seed=2), 1, None, IndexConfig(), device="cpu")
     assert ph.sketch_tables(_budget(ph, 7) - 1) is None
-    with pytest.raises(NotImplementedError):
-        ph.sketch_tables(packed=False)
+    assert ph.sketch_tables(8 * _budget(ph, 7) - 1, packed=False) is None
+    ph._sketch_cache = None
+    packed = ph.sketch_tables(8 * _budget(ph, 7))
+    unpacked = ph.sketch_tables(8 * _budget(ph, 7), packed=False)
+    assert packed[3] == 10 and unpacked[3] == 7
+    assert unpacked[0].shape == (1 << 7, _tl_pad(ph))
+    assert ph.sketch_tables(packed=False) is unpacked
 
 
 # ---------------------------------------------------------------------------
@@ -484,10 +489,10 @@ def test_sketch_escalation_ladder(monkeypatch):
 
 
 def test_sketch_gates_route_dense():
-    """Batches the reference sends elsewhere leave the sketch: a table that
-    fits BITMAP_BUDGET takes the bitmap route (weighted: no h*); a tiny
-    batch takes the sorted runs (tiny_runs); queries over 127 gram windows
-    (the unpacked sketch, not ported) take the dense path."""
+    """Batches the reference sends elsewhere leave the packed sketch: a
+    table that fits BITMAP_BUDGET takes the bitmap route (weighted: no h*);
+    a tiny batch takes the sorted runs (tiny_runs); queries over 127 gram
+    windows take the unpacked sketch where it fits, else the sorted runs."""
     words, weights = _rows2d(600, seed=9)
     ph = pbuild(words, 2, weights, IndexConfig(), device="cpu")
     pe = _sketch_engine(PEngine(ph), ph)
@@ -513,6 +518,7 @@ def test_sketch_gates_route_dense():
     assert pe.last_routing["variant"] == "runs"
     assert got == pe.search_batch(long_q, 0.1, 10, mode="dense")
     pe.SKETCH_BUDGET = _budget(ph, 10)
+    ph._sketch_cache = None  # cached per index and mode, a miss too
     got = pe.search_batch(long_q, 0.1, 10, mode="candidates")
-    assert pe.last_routing["variant"] == "dense"
+    assert pe.last_routing["variant"] == "sketch"
     assert got == pe.search_batch(long_q, 0.1, 10, mode="dense")
