@@ -31,7 +31,11 @@ Drives the port's candidate paths on one CUDA card, through
     take it by default;
   * on the 10M-key index, persistence and the flat API: ``save`` /
     ``load``, ``capi.loadIndex``, ``capi.score`` and ``cabi``'s C function
-    pointers.
+    pointers;
+  * the sharded engines (``parallel``): the term-sharded engine on the
+    10M-key index at 8 and 4 shards of the one card, the gram-sharded and
+    DP x TP engines on dense_1m's index, and two processes x two shards
+    over gloo.
 
 It also launches the K1 probes P1-P9 (``ops.probes``, the port of the
 reference's probe tools) at their tools' full shapes while the 10M-key
@@ -39,7 +43,8 @@ table is resident.
 
 Phases, each printing one line with its seconds; any failure raises, so the
 script exits non-zero and prints no final ``ok`` line.  They run in the
-order 1-3, 15, 4-5, 21, 6, 11-12, 23, 7-10, 22, 16, 18-19, 13-14, 17, 20:
+order 1-3, 15, 4-5, 21, 6, 11-12, 23-24, 7-10, 22, 16, 18-19, 13-14, 17,
+20, 25-26:
 
   1. device: a CUDA card is required; prints nvidia-smi's name and power
      limit;
@@ -160,7 +165,39 @@ order 1-3, 15, 4-5, 21, 6, 11-12, 23, 7-10, 22, 16, 18-19, 13-14, 17, 20:
      ``QueryMetrics`` attached and 32 through ``cabi.function_table()``'s
      score / search / release as C function pointers (equal to the batch's
      results), getSize / getLibSize / dispose; save, load and file bytes
-     beside phase 4's build seconds, and ``index_stats``.
+     beside phase 4's build seconds, and ``index_stats``;
+  24. the term-sharded engine on the 10M-key index (no rebuild):
+     ``shard_index(host, 8)`` (the card's index read to host numpy;
+     seconds: the time to recover), a ShardedEngine on ``make_mesh(8,
+     device=card)`` (eight shards of the one card, run one after another);
+     the headline's 512 queries, one warm-up and three timed batches, every
+     pass on the front the budget rule picks (``matmul``, ``torch._int_mm``
+     per shard, where G x Tl_c fits GM_BUDGET; else ``runs``, K6's
+     expansion per shard), results equal to phase 4's as tie groups with
+     their keys, the first 8 to the port's oracle over the rows of the same
+     corpus that can score on them (``_oracle_rows``; ``_oracle_child_10m``,
+     a spawned process started after phase 1, whose answers are read after
+     phase 26); one
+     shard's candidate pass and the merge timed with CUDA events on a
+     chunk's real operands.  Then the elastic re-shard at S = 4: 64 of the
+     queries equal to S = 8's, 16 queries of 1-3 characters (the brute
+     tier: K5 per shard) and the wildcard equal to the single engine's.
+     Each S prints the bytes per shard on the card (its tensors, and the
+     ``memory_allocated`` delta) beside ``utils.capacity``'s plan, q/s
+     (median of 3), routing, and K5 / expansion / ``_int_mm`` counts, set
+     to 0 before each driven run and read after;
+  25. gram-sharded and DP x TP on dense_1m's resident index (after phase
+     20): ``GramShardedEngine`` on ``shard_index_by_grams(host, 4)`` and
+     ``DpTpEngine`` on ``shard_index_2d(host, 2, 2)``, each on one card:
+     256 of phase 20's queries and 16 of 1-3 characters equal to the
+     single engine's; the summed TP hits of 8 queries equal to
+     ``gather_hits`` on the whole index; K5 and expansion launches;
+  26. two processes x two shards over gloo on localhost, both on the one
+     card (spawned, each building dense_1m's corpus itself on the CPU):
+     256 headline-style queries, then 16 of 1-3 characters and the
+     wildcard; both processes' results equal one process's ShardedEngine
+     at S = 4 on the resident index; wall and collective seconds per
+     process (gloo over host memory, not a multi-card figure).
 
 The line before the last is a JSON object describing the TPU kernels'
 ports (K1-K6, the postings expansion, P1-P9); the last line is ``{"ok":
@@ -1595,8 +1632,8 @@ def _matmul_1m(threshold, limit, dev):
         "traced_batch": _trace(lambda: engine.search_batch(
             queries, threshold, limit, batch_bucket=512)),
     }
-    del engine, host, gm
-    return info
+    del gm
+    return info, (host, engine, words, queries, results)
 
 
 # the K1 probes: (id, file:line of the TPU kernel's pallas_call)
@@ -1811,16 +1848,94 @@ def _oracle_child(conn, n2: int, n_long: int, n_oracle: int, threshold: float) -
         conn.close()
 
 
-class _OracleJob:
-    """``_oracle_child`` started in a spawned process (no CUDA there),
-    running beside the card's phases until its answers are read."""
+def _oracle_rows(words, queries, threshold: float, chunk: int = 1 << 20):
+    """Indices of the rows of a one-column corpus that can score on any of
+    ``queries``: every term too short for the gram tier, and every long term
+    whose gram hits reach ``threshold`` times its query's gram count (the
+    gram tier's pass rule, float32 as the oracle computes it).  A row
+    outside can reach no result of those queries, so the oracle over the
+    rows inside answers them as over the whole corpus.  Vectorized over the
+    port's numpy text and gram layers (not the index build)."""
+    import numpy as np
 
-    def __init__(self, *args):
+    from stringsearchlib_tpu_torch.core import grams as gramlib
+    from stringsearchlib_tpu_torch.core import text as textlib
+
+    g = 3
+    tables = textlib.TextTables()
+
+    def gram_rows(strings):
+        tok, ln = textlib.encode_batch(strings, False)
+        nt, nl = textlib.normalize_matrix(tok, ln, tables)
+        ids, valid = gramlib.gram_ids(nt, nl, g, False)
+        return nl, np.where(valid, ids, -1)
+
+    q_len, q_ids = gram_rows(queries)
+    union = np.unique(q_ids[q_ids >= 0])
+    # (grams of any query, queries) multiplicities
+    mult = np.zeros((union.size, len(queries)), np.float32)
+    for qi in range(len(queries)):
+        grams, m = np.unique(q_ids[qi][q_ids[qi] >= 0], return_counts=True)
+        mult[np.searchsorted(union, grams), qi] = m
+    n_q = np.maximum(q_len.astype(np.int64) - g + 1, 1).astype(np.float32)
+    thr = np.float32(threshold)
+    keep = []
+    for lo in range(0, len(words), chunk):
+        w_len, w_ids = gram_rows(words[lo : lo + chunk])
+        pos = np.searchsorted(union, w_ids).clip(max=max(union.size - 1, 0))
+        hit = (w_ids >= 0) & (union[pos] == w_ids) if union.size else w_ids < -1
+        present = np.zeros((w_ids.shape[0], max(union.size, 1)), np.float32)
+        r, c = np.nonzero(hit)
+        present[r, pos[r, c]] = 1.0  # each gram once per term, as a set
+        hits = present @ mult  # exact: small integer counts in float32
+        ok = (hits > 0) & (hits / n_q[None, :] >= thr)
+        keep.append(lo + np.flatnonzero(ok.any(axis=1) | (w_len < 2 * g)))
+    return np.concatenate(keep)
+
+
+def _oracle_child_10m(conn, n_keys: int, n_oracle: int, threshold: float) -> None:
+    """The port's pure-Python oracle over the headline corpus, in a process
+    of its own: it rebuilds the corpus and phase 4's queries from their
+    seeds and sends back, for the first ``n_oracle`` of them, every result
+    above ``threshold`` (unbounded).  The oracle indexes the rows that can
+    score on those queries (``_oracle_rows``): over all 10M rows its build
+    alone outlasts the run."""
+    import bench
+    from stringsearchlib_tpu_torch.utils.oracle import OracleIndex
+
+    try:
+        words = bench._product_names(n_keys, seed=2)
+        rng = random.Random(7)
+        queries = [bench._mutate(rng, rng.choice(words)) for _ in range(N_QUERIES)]
+        t0 = time.perf_counter()
+        rows = _oracle_rows(words, queries[:n_oracle], threshold)
+        filter_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        oracle = OracleIndex([words[i] for i in rows], row_size=1)
+        del words
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        results = [oracle.search(q, threshold, 0) for q in queries[:n_oracle]]
+        conn.send({"queries": queries[:n_oracle], "results": results,
+                   "rows": int(rows.size), "filter_s": filter_s,
+                   "build_s": build_s, "search_s": time.perf_counter() - t0})
+    except BaseException as e:  # reported to the parent, which raises
+        conn.send({"error": repr(e)})
+    finally:
+        conn.close()
+
+
+class _OracleJob:
+    """``target`` (``_oracle_child`` or ``_oracle_child_10m``) started in a
+    spawned process (no CUDA there), running beside the card's phases until
+    its answers are read."""
+
+    def __init__(self, target, *args):
         import multiprocessing
 
         ctx = multiprocessing.get_context("spawn")
         self.conn, child = ctx.Pipe(duplex=False)
-        self.proc = ctx.Process(target=_oracle_child, args=(child, *args), daemon=True)
+        self.proc = ctx.Process(target=target, args=(child, *args), daemon=True)
         self.proc.start()
         child.close()
         self.waited_s = None
@@ -2141,6 +2256,406 @@ def _persistence_api(idx, queries, results, routing, build_s, threshold, limit) 
         torch.cuda.empty_cache()
 
 
+N_ORACLE_10M = 8  # phase 24's queries held against the oracle
+N_RESHARD = 64  # phase 24's queries at S = 4
+N_TP = 256  # phase 25's batch queries
+N_TP_HITS = 8  # phase 25's queries whose summed hits are held bit for bit
+N_MH = 256  # phase 26's queries
+
+
+def _sharded_counts() -> dict:
+    """The launch counts a sharded path reads: K5, K6's expansion, their
+    plain calls, and ``torch._int_mm`` calls (a library product)."""
+    from stringsearchlib_tpu_torch.search import candidates as pc
+
+    c = _counts()
+    return {"k5": c["k5"], "k5_plain": c["k5_plain"], "expand": c["expand"],
+            "k6": c["k6"], "k6_plain": c["k6_plain"], "int_mm": pc.INT_MM_CALLS}
+
+
+def _reset_sharded_counts() -> None:
+    from stringsearchlib_tpu_torch.search import candidates as pc
+
+    _reset_counts()
+    pc.INT_MM_CALLS = 0
+
+
+def _shard_placement(engine) -> dict:
+    """Bytes the sharded engine holds on the card: each shard's own
+    tensors (its slices and gram matrix), and the replicated leaves."""
+    from stringsearchlib_tpu_torch.parallel import dist
+
+    shards = engine._leaves()
+    own = [sum(t.numel() * t.element_size() for n, t in lv.items() if n in dist._STACKED)
+           for lv in shards]
+    rep = {id(t): t.numel() * t.element_size() for lv in shards
+           for n, t in lv.items() if n not in dist._STACKED}
+    return {"per_shard_bytes": own, "replicated_bytes": sum(rep.values())}
+
+
+def _shard_step_times(engine, rt, queries, threshold, limit) -> dict:
+    """CUDA-event milliseconds of one shard's candidate pass and of the
+    merge, on the first chunk of a batch at the step of routing ``rt`` (a
+    first pass), with the operands the engine hands them."""
+    import numpy as np
+
+    from stringsearchlib_tpu_torch.parallel import dist
+    from stringsearchlib_tpu_torch.search.engine import _next_pow2
+
+    step = int(rt["step"])
+    items = []
+    for pos, q in enumerate(queries[:step]):
+        qn, ql = engine._normalize_query(q)
+        items.append((pos, qn, ql, engine.host.promo_key_ids(qn, ql)[: engine.PROMO_KEYS]))
+    b, qtok, qlens, slots, nqg, use_short, s_cap = engine._prep_rows(items, 32)
+    promo = np.full((b, engine.PROMO_KEYS), -1, np.int32)
+    for r, it in enumerate(items):
+        promo[r, : it[3].size] = it[3]
+    promo_t, promo_w = engine._promo_tables_sharded(promo)
+    shards = engine._leaves()
+    dev = engine.mesh.device
+    qbuf = dist.replicate((qtok, qlens, slots, nqg, use_short, promo,
+                           np.full(b, limit, np.int32)), [dev])[dev]
+    top_k = _next_pow2(limit, 16)
+    kw = dict(front=rt["variant"], compute_short=bool(use_short.any()) and engine.sx.ts_c > 0,
+              s_cap=s_cap, n_cand=int(rt["n_cand"]), n_edge=min(max(_next_pow2(max(
+                  int(engine.sx.leaves["extra_key"].shape[1]), 1), 16), 16), engine.CAND_EDGES),
+              top_k=top_k, block_sel=bool(rt["block_sel"]))
+    thr = np.float32(threshold)
+    p_t = [dist.upload(promo_t[i], dev) for i in engine.mesh.shard_ids]
+    p_w = [dist.upload(promo_w[i], dev) for i in engine.mesh.shard_ids]
+    outs = [dist.shard_candidates(lv, qbuf, p_t[i], p_w[i], thr, **kw)
+            for i, lv in enumerate(shards)]
+    k_total = int(shards[0]["key_len"].shape[0])
+    return {
+        "b": b, "s_cap": s_cap,
+        "shard_step_ms": _cuda_ms(
+            lambda: dist.shard_candidates(shards[0], qbuf, p_t[0], p_w[0], thr, **kw), 3),
+        "merge_ms": _cuda_ms(
+            lambda: dist.merge_candidates(engine.mesh, outs, k_total, limit, top_k), 5),
+        "steps_per_batch": engine.sx.n_shards * -(-N_QUERIES // step),
+    }
+
+
+def _sharded_10m(host, engine, words, queries, results, threshold, limit, dev):
+    """Phase 24: the term-sharded engine at 10M keys on the resident
+    headline index.  ``shard_index(host, 8)`` (read to host numpy), a
+    ShardedEngine on eight shards of the one card: the headline's 512
+    queries (every first pass ``matmul``, ``torch._int_mm`` per shard),
+    equal to phase 4's results (the first 8 go to the port's oracle at the
+    end of the run, ``_sharded_oracle``); then the elastic re-shard at S = 4 (``runs``: K6's expansion per
+    shard): 64 of the queries equal to S = 8's, 16 queries of 1-3
+    characters (K5 per shard) and the wildcard equal to the single
+    engine's.  Counts are set to 0 before each driven run and read after."""
+    import torch
+
+    from stringsearchlib_tpu_torch.parallel import dist
+    from stringsearchlib_tpu_torch.search.engine import _next_pow2
+    from stringsearchlib_tpu_torch.utils.capacity import (
+        device_hbm_bytes, estimate_shard_hbm,
+    )
+
+    out = {"n_keys": len(words)}
+    avg_len = round(sum(len(w) for w in words[:100_000]) / min(len(words), 100_000))
+    for s in (8, 4):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sx = dist.shard_index(host, s)
+        shard_s = time.perf_counter() - t1
+        mem0 = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        eng = dist.ShardedEngine(sx, dist.make_mesh(s, device=dev))
+        gm = eng._gram_matrix_stacked()
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t1
+        placed = _shard_placement(eng)
+        plan = estimate_shard_hbm(len(words), shards=s, avg_len=avg_len,
+                                  n_grams=host.n_grams, batch=512,
+                                  top_k=_next_pow2(limit, 16))
+        info = {
+            "shard_index_s": shard_s, "place_s": place_s,
+            "memory_allocated_delta_bytes": torch.cuda.memory_allocated() - mem0,
+            **placed, "gram_matrix": gm is not None,
+            "plan_bytes": {"resident": plan.resident, "total": plan.total,
+                           "breakdown_gb": plan.breakdown()},
+            "tl_c": sx.tl_c, "ts_c": sx.ts_c,
+            "posting_mass_per_shard": sx.host_shard_posting_lens.sum(axis=1).tolist(),
+        }
+        del sx
+        qs = queries if s == 8 else queries[:N_RESHARD]
+        _reset_sharded_counts()
+        (res, warm_s, rep_s), passes = _with_passes(
+            eng, lambda: _timed_batches(eng, qs, threshold, limit))
+        torch.cuda.synchronize()
+        counts = _sharded_counts()
+        first = passes[0][2]
+        # the front the budget rule picks: G * Tl_c within GM_BUDGET
+        want = "matmul" if gm is not None else "runs"
+        if any(p[2]["variant"] != want for p in passes):
+            raise AssertionError(f"S = {s}: passes routed {[p[2] for p in passes]}, not {want}")
+        if counts["k5_plain"] or counts["k6_plain"]:
+            raise AssertionError(f"S = {s}: plain calls {counts}")
+        if want == "matmul" and counts["int_mm"] <= 0:
+            raise AssertionError(f"S = {s}: no torch._int_mm call {counts}")
+        if want == "runs" and counts["expand"] < s:
+            raise AssertionError(f"S = {s}: K6's expansion launched {counts['expand']} times")
+        _check_results(res, qs, threshold, limit)
+        if s == 8:
+            _same_groups(res, results, "sharded S = 8 vs phase 4")
+            res8 = res
+            info["step_times"] = _shard_step_times(eng, first, qs, threshold, limit)
+        else:
+            _same_groups(res, res8[:N_RESHARD], "sharded S = 4 vs S = 8")
+            brute_q = _brute_queries(engine, words, dev)[0]
+            _reset_sharded_counts()
+            got_b = eng.search_batch(brute_q + ["*"], threshold, limit)
+            torch.cuda.synchronize()
+            info["brute_counts"] = _sharded_counts()
+            if info["brute_counts"]["k5"] <= 0 or info["brute_counts"]["k5_plain"]:
+                raise AssertionError(f"S = 4 brute tier: {info['brute_counts']}")
+            want_b = engine.search_batch(brute_q, threshold, limit)
+            want_b.append(engine.search("*", threshold, limit))
+            _same_groups(got_b, want_b, "sharded S = 4 brute + wildcard vs the single engine")
+            info["brute_mean_results"] = sum(len(k) for k, _ in got_b) / len(got_b)
+        med = sorted(rep_s)[len(rep_s) // 2]
+        info.update({
+            "n_queries": len(qs), "qps_median": len(qs) / med, "rep_s": rep_s,
+            "warmup_s": warm_s, "routing_first_pass": first,
+            "passes": [p[2] for p in passes], "counts": counts,
+            "mean_results": sum(len(k) for k, _ in res) / len(res),
+        })
+        out[f"s{s}"] = info
+        del eng, gm
+        torch.cuda.empty_cache()
+    out["card_bytes"] = device_hbm_bytes(dev)
+    return out, res8[:N_ORACLE_10M]
+
+
+def _sharded_oracle(got, queries, limit, oracle_10m) -> dict:
+    """Phase 24's first results at S = 8 against the port's oracle over the
+    headline corpus, read at the end of the run: the oracle's build takes
+    most of the run in its own process."""
+    oracle = oracle_10m.result()
+    if oracle["queries"] != queries[:N_ORACLE_10M]:
+        raise AssertionError("the oracle's queries are not phase 4's")
+    for i, (g, want) in enumerate(zip(got, oracle["results"])):
+        _oracle_agrees(g, want, limit, f"sharded S = 8 query {i} vs the oracle")
+    return {"n": len(got), "rows": oracle["rows"], "filter_s": oracle["filter_s"],
+            "build_s": oracle["build_s"], "search_s": oracle["search_s"],
+            "wait_s": oracle_10m.waited_s}
+
+
+def _tp_dp_1m(host, engine, words, queries, results, threshold, limit, dev) -> dict:
+    """Phase 25: the gram-sharded engine (``shard_index_by_grams(host, 4)``)
+    and the DP x TP engine (``shard_index_2d(host, 2, 2)``) on dense_1m's
+    resident index, each on one card: 256 of phase 20's queries and 16 of
+    1-3 characters, equal to the single engine's; the summed TP hits of 8
+    queries bit-identical to ``gather_hits`` on the whole index."""
+    import numpy as np
+    import torch
+
+    from stringsearchlib_tpu_torch.parallel import dp_tp, tp
+    from stringsearchlib_tpu_torch.parallel.dist import make_mesh, replicate
+    from stringsearchlib_tpu_torch.search.engine import _next_pow2
+    from stringsearchlib_tpu_torch.search.overlap import gather_hits
+
+    qs = queries[:N_TP]
+    want = results[:N_TP]
+    brute_q = _brute_queries(engine, words, dev)[0]
+    want_b = engine.search_batch(brute_q, threshold, limit)
+    out = {}
+    for name in ("tp", "dp_tp"):
+        t1 = time.perf_counter()
+        if name == "tp":
+            ix = tp.shard_index_by_grams(host, 4)
+            eng = tp.GramShardedEngine(ix, make_mesh(4, tp.AXIS, device=dev))
+        else:
+            ix = dp_tp.shard_index_2d(host, 2, 2)
+            eng = dp_tp.DpTpEngine(ix, dp_tp.make_mesh_2d(2, 2, device=dev))
+        shard_s = time.perf_counter() - t1
+        _reset_sharded_counts()
+        res, warm_s, rep_s = _timed_batches(eng, qs, threshold, limit)
+        got_b = eng.search_batch(brute_q, threshold, limit)
+        torch.cuda.synchronize()
+        counts = _sharded_counts()
+        if counts["k5"] <= 0 or counts["expand"] <= 0 or counts["k5_plain"] or counts["k6_plain"]:
+            raise AssertionError(f"{name}: counts {counts}")
+        _check_results(res, qs, threshold, limit)
+        _same_groups(res, want, f"{name} vs the single engine")
+        _same_groups(got_b, want_b, f"{name} brute vs the single engine")
+        med = sorted(rep_s)[len(rep_s) // 2]
+        out[name] = {"shard_s": shard_s, "qps_median": len(qs) / med, "rep_s": rep_s,
+                     "warmup_s": warm_s, "counts": counts}
+        if name == "tp":
+            items = []
+            for pos, q in enumerate(qs[:N_TP_HITS]):
+                qn, ql = eng._normalize_query(q)
+                items.append((pos, qn, ql, None))
+            qp = eng._chunk_qp(items)
+            b, qtok, qlens, slots, nqg, use_short, _ = eng._prep_rows(items, qp)
+            shards = eng._leaves()
+            qbufs = replicate((qtok, qlens, slots, nqg, use_short), eng.mesh.row_devices)
+            tl = int(shards[0]["long_lengths"].shape[0])
+            got = tp._summed_hits(eng.mesh, shards, qbufs, ix.g_c, tl,
+                                  eng._s_cap(slots, len(items)))
+            di = host.device
+            full = host.host_posting_lens[np.clip(slots, 0, None)] * (slots >= 0)
+            cap = _next_pow2(max(int(full.sum(axis=1).max()), 1), 1024)
+            ref = gather_hits(di.gram_ptr, di.gram_terms,
+                              torch.from_numpy(slots).to(dev), tl, cap)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError("TP summed hits differ from gather_hits")
+            out[name]["summed_hits"] = {"queries": N_TP_HITS, "equal": True,
+                                        "hits_total": int(ref.sum())}
+        del eng, ix
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mh_child(conn, rank: int, port: int, n_keys: int, n_queries: int,
+              threshold: float, limit: int, device: str) -> None:
+    """One of phase 26's two processes: builds ``bench._product_names``'s
+    corpus on the CPU, joins the gloo group on localhost, and runs
+    ``MultiHostShardedEngine`` with its two shards on the card: a warm-up,
+    then the timed batch (wall and collective seconds) and the brute batch;
+    sends back results and counts."""
+    try:
+        import torch
+        import torch.distributed as tdist
+
+        import bench
+        from stringsearchlib_tpu_torch.config import IndexConfig
+        from stringsearchlib_tpu_torch.index.build import build_index
+        from stringsearchlib_tpu_torch.parallel.dist import shard_index
+        from stringsearchlib_tpu_torch.parallel.multihost import (
+            MultiHostShardedEngine, global_mesh, init_distributed,
+        )
+
+        t0 = time.perf_counter()
+        words = bench._product_names(n_keys)
+        host = build_index(words, 1, None, IndexConfig(), device="cpu")
+        build_s = time.perf_counter() - t0
+        init_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+        eng = MultiHostShardedEngine(shard_index(host, 4), global_mesh(2, device=device))
+        rng = random.Random(7)
+        queries = [bench._mutate(rng, rng.choice(words)) for _ in range(n_queries)]
+        coll = {"s": 0.0, "n": 0}
+        for name in ("all_gather", "all_reduce"):
+            f = getattr(tdist, name)
+
+            def timed(*a, _f=f, **k):
+                t = time.perf_counter()
+                r = _f(*a, **k)
+                coll["s"] += time.perf_counter() - t
+                coll["n"] += 1
+                return r
+
+            setattr(tdist, name, timed)
+        _reset_sharded_counts()
+        eng.search_batch(queries, threshold, limit, batch_bucket=512)
+        torch.cuda.synchronize()
+        tdist.barrier()
+        coll.update(s=0.0, n=0)
+        t1 = time.perf_counter()
+        res = eng.search_batch(queries, threshold, limit, batch_bucket=512)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t1
+        coll_s, coll_n = coll["s"], coll["n"]
+        brute_q = _brute_queries(eng, words, device)[0]
+        res_b = eng.search_batch(brute_q + ["*"], threshold, limit)
+        torch.cuda.synchronize()
+        conn.send({
+            "rank": rank, "build_s": build_s, "wall_s": wall_s,
+            "collective_s": coll_s, "collectives": coll_n,
+            "routing": dict(eng.last_routing), "counts": _sharded_counts(),
+            "local_shards": list(eng.mesh.shard_ids), "queries": queries,
+            "brute_queries": brute_q,
+            "results": [(list(k), list(v)) for k, v in res],
+            "brute_results": [(list(k), list(v)) for k, v in res_b],
+        })
+        tdist.destroy_process_group()
+    except BaseException as e:  # reported to the parent, which raises
+        import traceback
+
+        conn.send({"error": repr(e), "trace": traceback.format_exc()})
+    finally:
+        conn.close()
+
+
+def _two_process_1m(host, words, threshold, limit, dev) -> dict:
+    """Phase 26: two processes x two shards of dense_1m's corpus, both on
+    the one card, over gloo on localhost (collectives staged through host
+    memory): each builds the corpus itself; 256 headline-style queries and
+    16 of 1-3 characters + the wildcard; both processes' results equal one
+    process's ShardedEngine at S = 4 on the resident index."""
+    import multiprocessing
+    import socket
+
+    import torch
+
+    from stringsearchlib_tpu_torch.parallel.dist import (
+        ShardedEngine, make_mesh, shard_index,
+    )
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # localhost only
+    ctx = multiprocessing.get_context("spawn")
+    conns, procs = [], []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(2):
+            parent, child = ctx.Pipe(duplex=False)
+            p = ctx.Process(target=_mh_child, daemon=True, args=(
+                child, rank, port, len(words), N_MH, threshold, limit, str(dev)))
+            p.start()
+            child.close()
+            conns.append(parent)
+            procs.append(p)
+        outs = []
+        for c in conns:
+            if not c.poll(600):
+                raise AssertionError("a phase 26 process sent nothing in 600 s")
+            outs.append(c.recv())
+        for p in procs:
+            p.join(60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(30)
+    wall_s = time.perf_counter() - t0
+    for o in outs:
+        if "error" in o:
+            raise AssertionError(f"phase 26 rank failed: {o['error']}\n{o.get('trace')}")
+    one = ShardedEngine(shard_index(host, 4), make_mesh(4, device=dev))
+    want = one.search_batch(outs[0]["queries"], threshold, limit, batch_bucket=512)
+    want_b = one.search_batch(outs[0]["brute_queries"] + ["*"], threshold, limit)
+    torch.cuda.synchronize()
+    del one
+    torch.cuda.empty_cache()
+    for o in outs:
+        if o["queries"] != outs[0]["queries"]:
+            raise AssertionError("the two processes sent different queries")
+        _same_groups(o["results"], want, f"rank {o['rank']} vs one process at S = 4")
+        _same_groups(o["brute_results"], want_b, f"rank {o['rank']} brute vs one process")
+        c = o["counts"]
+        if c["k5_plain"] or c["k6_plain"] or c["k5"] <= 0 or c["int_mm"] + c["expand"] <= 0:
+            raise AssertionError(f"rank {o['rank']}: counts {c}")
+    if outs[0]["results"] != outs[1]["results"]:
+        raise AssertionError("the two processes' results differ")
+    return {
+        "processes": 2, "shards_per_process": 2, "backend": "gloo",
+        "wall_s_total": wall_s,
+        "per_rank": [{k: o[k] for k in ("rank", "build_s", "wall_s", "collective_s",
+                                        "collectives", "routing", "counts", "local_shards")}
+                     for o in outs],
+        "qps": [N_MH / o["wall_s"] for o in outs],
+    }
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--keys", type=int, default=10_000_000)
@@ -2173,15 +2688,19 @@ def main() -> None:
 
     # the oracle of phase 22 builds over the 2-D corpus in a process of its
     # own (no CUDA there) while the card's phases run
-    oracle_job = _OracleJob(args.rows2d, N_LONG_2D, N_LONG_ORACLE, THRESHOLD)
+    oracle_job = _OracleJob(_oracle_child, args.rows2d, N_LONG_2D, N_LONG_ORACLE,
+                            THRESHOLD)
+    # and phase 24's, over the headline corpus
+    oracle_10m = _OracleJob(_oracle_child_10m, args.keys, N_ORACLE_10M, THRESHOLD)
     try:
-        _phases(args, smi, kind, count, dev, oracle_job)
+        _phases(args, smi, kind, count, dev, oracle_job, oracle_10m)
     finally:
         oracle_job.stop()
+        oracle_10m.stop()
 
 
-def _phases(args, smi: str, kind: str, count: int, dev, oracle_job) -> None:
-    """Phases 2-23 and the two result lines, on card ``dev``."""
+def _phases(args, smi: str, kind: str, count: int, dev, oracle_job, oracle_10m) -> None:
+    """Phases 2-26 and the two result lines, on card ``dev``."""
     import torch
 
     # -- 2. build ---------------------------------------------------------------
@@ -2437,6 +2956,18 @@ def _phases(args, smi: str, kind: str, count: int, dev, oracle_job) -> None:
     _phase("persistence_api", t0, save_s=round(persist["save_s"], 2),
            load_s=round(persist["load_s"], 2), build_s=round(build_s, 2),
            loaded_qps=round(persist["loaded_qps_median"], 2))
+
+    # -- 24. term-sharded at 10M keys, S = 8 then S = 4 ----------------------
+    t0 = time.perf_counter()
+    sharded, sharded_first = _sharded_10m(host, engine, words, queries, results,
+                                          threshold, limit, dev)
+    print(json.dumps({"sharded_10m": sharded, "card": smi}), flush=True)
+    _phase("sharded_10m", t0,
+           qps_s8=round(sharded["s8"]["qps_median"], 2),
+           qps_s4=round(sharded["s4"]["qps_median"], 2),
+           shard_s8_s=round(sharded["s8"]["shard_index_s"], 2),
+           shard_s4_s=round(sharded["s4"]["shard_index_s"], 2),
+           merge_ms=round(sharded["s8"]["step_times"]["merge_ms"], 4))
     del idx, engine, host, bm, table, q, results
     torch.cuda.empty_cache()
 
@@ -2647,13 +3178,48 @@ def _phases(args, smi: str, kind: str, count: int, dev, oracle_job) -> None:
 
     # -- 20. dense_1m: the gram-matrix route -------------------------------------
     t0 = time.perf_counter()
-    mm = _matmul_1m(threshold, limit, dev)
+    mm, dense_1m = _matmul_1m(threshold, limit, dev)
     print(json.dumps({"matmul_1m": mm, "card": smi}), flush=True)
     _phase("matmul_1m", t0, qps=round(mm["qps_median"], 2),
            single_p50=round(mm["single_query_ms"]["p50"], 3))
 
+    # -- 25. gram-sharded and DP x TP on dense_1m's index -----------------------
+    t0 = time.perf_counter()
+    tpdp = _tp_dp_1m(*dense_1m, threshold, limit, dev)
+    print(json.dumps({"tp_dp_tp_1m": tpdp, "card": smi}), flush=True)
+    _phase("tp_dp_tp_1m", t0, tp_qps=round(tpdp["tp"]["qps_median"], 2),
+           dp_tp_qps=round(tpdp["dp_tp"]["qps_median"], 2))
+
+    # -- 26. two processes x two shards over gloo ---------------------------------
+    t0 = time.perf_counter()
+    mh = _two_process_1m(dense_1m[0], dense_1m[2], threshold, limit, dev)
+    print(json.dumps({"two_process_1m": mh, "card": smi}), flush=True)
+    _phase("two_process_1m", t0, wall_s=[round(r["wall_s"], 3) for r in mh["per_rank"]],
+           collective_s=[round(r["collective_s"], 3) for r in mh["per_rank"]])
+    del dense_1m
+    torch.cuda.empty_cache()
+
+    # -- 24, concluded: phase 24's first queries against the oracle ------------
+    t0 = time.perf_counter()
+    sharded["oracle"] = _sharded_oracle(sharded_first, queries, limit, oracle_10m)
+    print(json.dumps({"sharded_10m_oracle": sharded["oracle"], "card": smi}), flush=True)
+    _phase("sharded_10m_oracle", t0, queries=sharded["oracle"]["n"],
+           wait_s=round(sharded["oracle"]["wait_s"], 2))
+
     src = "stringsearchlib_tpu_torch/csrc/bitmap_hits.cu"
     gsrc = "stringsearchlib_tpu_torch/csrc/gather_rows.cu"
+    # K5's and K6's expansion's launches on the sharded paths (phases 24-26)
+
+    def sharded_launches(key: str) -> dict:
+        return {
+            "sharded_10m": sum(sharded[f"s{n}"]["counts"][key] for n in (8, 4))
+            + sharded["s4"]["brute_counts"][key],
+            "tp_dp_tp_1m": sum(tpdp[n]["counts"][key] for n in ("tp", "dp_tp")),
+            "two_process_1m": sum(r["counts"][key] for r in mh["per_rank"]),
+        }
+
+    k5_paths = {"wide_g3": wide3["counts"]["k5"], **sharded_launches("k5")}
+    ex_paths = {"wide_g3": wide3["counts"]["expand"], **sharded_launches("expand")}
     g_real = gathered["gather_real_rows"]
     k5_real = wide3["route_kernels"]["k5"]
     k6_real = wide3["route_kernels"]["k6"]
@@ -2702,7 +3268,8 @@ def _phases(args, smi: str, kind: str, count: int, dev, oracle_job) -> None:
         "route": "cuda",
         "source": "stringsearchlib_tpu_torch/csrc/dp_match.cu",
         "replaces": "tools/experimental/dp_pallas.py:86",
-        "launches": wide3["counts"]["k5"],
+        "launches": sum(k5_paths.values()),
+        "launches_by_path": k5_paths,
         "max_abs_err": k5_err,
         "ms": k5_real["ms"],
         "device_ms": k5_real["device_ms"],
@@ -2735,7 +3302,8 @@ def _phases(args, smi: str, kind: str, count: int, dev, oracle_job) -> None:
         "route": "cuda",
         "source": "stringsearchlib_tpu_torch/csrc/gather_tables.cu",
         "replaces": "tools/experimental/vgather.py:65",
-        "launches": wide3["counts"]["expand"],
+        "launches": sum(ex_paths.values()),
+        "launches_by_path": ex_paths,
         "max_abs_err": max([ex_real["max_abs_err"]]
                            + [c["max_abs_err"] for c in tiny2d["expand"].values()]),
         "ms": ex_real["ms"],

@@ -13,7 +13,10 @@ runs for tiny batches and as the fallback (``tiny_runs``, ``runs``), the
 bitmap routes (K1/K2, the gathered-row route with the row gather K3/K4)
 and the bucket sketch (K2 packed, ``torch._int_mm`` unpacked) - with their
 finishes, the dense path, wildcard and brute-force-short queries, index
-persistence in the reference's ``.npz`` format, and both API styles:
+persistence in the reference's ``.npz`` format, multi-card sharding over a
+mesh of devices (:mod:`~stringsearchlib_tpu_torch.parallel`: term-sharded,
+gram-sharded, both in 2-D, and across processes over ``torch.distributed``,
+with ``utils.capacity``'s per-card plan), and both API styles:
 
   * :class:`StringSearchIndex` - the pythonic object API, with
     ``save`` / ``load``;

@@ -243,19 +243,10 @@ class HostIndex:
         if g == 0 or tl == 0 or g * tl > budget_bytes:
             self._gram_matrix_cache = False
             return None
-        dev = self.device.device
-        gp, tlp = -(-g // 8) * 8, -(-tl // 8) * 8
-        gm = torch.zeros((gp, tlp), dtype=torch.int8, device=dev)
-        flat = gm.view(-1)
-        gram_terms = self.device.gram_terms
-        ends = self.device.gram_ptr[1:].to(torch.int64)
-        total_p = int(gram_terms.shape[0])
-        for p0 in range(0, total_p, self.BITS_CHUNK):
-            p1 = min(p0 + self.BITS_CHUNK, total_p)
-            pos = torch.arange(p0, p1, dtype=torch.int64, device=dev)
-            rows = torch.searchsorted(ends, pos, right=True)
-            flat.index_fill_(0, rows * tlp + gram_terms[p0:p1].to(torch.int64), 1)
-            del pos, rows
+        gm = incidence_matrix(
+            self.device.gram_ptr, self.device.gram_terms, g, tl,
+            int(self.device.gram_terms.shape[0]), self.BITS_CHUNK,
+        )
         self._gram_matrix_cache = gm
         return gm
 
@@ -490,6 +481,28 @@ class HostIndex:
         self.host_key_norm_tokens = norm
         self.host_key_norm_lengths = norm_len.astype(np.int32)
         self._key_hash_cache = None
+
+
+def incidence_matrix(gram_ptr, gram_terms, n_grams: int, n_long: int,
+                     n_postings: int, chunk: int) -> torch.Tensor:
+    """The dense 0/1 (Gp, Tlp) int8 gram -> long-term incidence of the CSR
+    ``gram_ptr`` / ``gram_terms[:n_postings]`` on their device: Gp and Tlp
+    round ``n_grams`` and ``n_long`` up to multiples of 8 (``torch._int_mm``'s
+    shapes) with zero rows and columns.  Postings are unique per (gram, term),
+    so setting a byte equals the reference's add; ``chunk`` postings per
+    scatter bound the transient int64 positions."""
+    dev = gram_terms.device
+    gp, tlp = -(-n_grams // 8) * 8, -(-n_long // 8) * 8
+    gm = torch.zeros((gp, tlp), dtype=torch.int8, device=dev)
+    flat = gm.view(-1)
+    ends = gram_ptr[1:].to(torch.int64)
+    for p0 in range(0, n_postings, chunk):
+        p1 = min(p0 + chunk, n_postings)
+        pos = torch.arange(p0, p1, dtype=torch.int64, device=dev)
+        rows = torch.searchsorted(ends, pos, right=True)
+        flat.index_fill_(0, rows * tlp + gram_terms[p0:p1].to(torch.int64), 1)
+        del pos, rows
+    return gm
 
 
 _FNV_OFFSET = np.uint64(1469598103934665603)

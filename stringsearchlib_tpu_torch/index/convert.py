@@ -7,6 +7,11 @@ its inverse.  The names are those of the reference's ``.npz`` format
 ``index.serialize``): ``dev_<DeviceIndex field>`` for every device array
 plus the host tables; scalars travel in ``meta``.  They let a test (or a
 migration) run both packages' engines on one and the same index.
+
+``sharded_index_from_arrays``, ``gram_sharded_index_from_arrays`` and
+``dp_tp_index_from_arrays`` do the same for a sharded index's host state:
+the reference's ``ShardedIndex`` / ``GramShardedIndex`` / ``DpTpIndex``
+leaves (numpy) and scalars, over a converted ``HostIndex``.
 """
 
 from __future__ import annotations
@@ -134,3 +139,74 @@ def arrays_from_host_index(host: HostIndex) -> tuple:
         "wide_upper": cfg.wide_upper,
     }
     return arrays, meta
+
+
+def sharded_index_from_arrays(host: HostIndex, leaves: dict, meta: dict,
+                              host_shard_posting_lens):
+    """This package's ``parallel.dist.ShardedIndex`` over ``host`` from a
+    term-sharded index's state as numpy: the reference's
+    ``ShardedIndex.leaves`` (every name of ``dist._STACKED`` but ``gm``,
+    and ``key_len``), ``meta`` with ``n_shards``, ``ts_c`` and ``tl_c``, and
+    its ``host_shard_posting_lens``.  Leaves are copied as they are."""
+    from ..parallel.dist import _STACKED, ShardedIndex
+
+    need = [n for n in _STACKED if n != "gm"] + ["key_len"]
+    missing = [n for n in need if n not in leaves]
+    if missing:
+        raise KeyError(f"missing sharded leaves: {missing}")
+    s = int(meta["n_shards"])
+    bad = [n for n in need if n != "key_len" and np.asarray(leaves[n]).shape[0] != s]
+    if bad:
+        raise ValueError(f"leaves without a leading dim of {s} shards: {bad}")
+    return ShardedIndex(
+        host=host,
+        n_shards=s,
+        ts_c=int(meta["ts_c"]),
+        tl_c=int(meta["tl_c"]),
+        leaves={n: np.array(leaves[n]) for n in need},
+        host_shard_posting_lens=np.array(host_shard_posting_lens, np.int64),
+    )
+
+
+def gram_sharded_index_from_arrays(host: HostIndex, leaves: dict, meta: dict,
+                                   host_shard_posting_lens):
+    """This package's ``parallel.tp.GramShardedIndex`` over ``host`` from a
+    gram-sharded index's state as numpy: the reference's
+    ``GramShardedIndex.leaves``, ``meta`` with ``n_shards`` and ``g_c``, and
+    its ``host_shard_posting_lens``."""
+    from ..parallel.tp import GramShardedIndex
+
+    need = ("gram_ptr", "gram_terms", "short_tokens", "short_lengths",
+            "long_tokens", "long_lengths", "term_wmax", "term_extra_ptr",
+            "extra_key", "edge_term", "edge_key", "edge_weight", "key_len",
+            "pt", "xt")
+    missing = [n for n in need if n not in leaves]
+    if missing:
+        raise KeyError(f"missing gram-sharded leaves: {missing}")
+    return GramShardedIndex(
+        host=host,
+        n_shards=int(meta["n_shards"]),
+        g_c=int(meta["g_c"]),
+        leaves={n: np.array(leaves[n]) for n in need},
+        host_shard_posting_lens=np.array(host_shard_posting_lens, np.int64),
+    )
+
+
+def dp_tp_index_from_arrays(sx, arrays: dict, meta: dict):
+    """This package's ``parallel.dp_tp.DpTpIndex`` from a term-sharded
+    ``sx`` (``sharded_index_from_arrays``) and the reference's 2-D split:
+    ``arrays`` with ``gram_ptr2``, ``gram_terms2`` and ``lens3``, ``meta``
+    with ``sg`` and ``g_c``."""
+    from ..parallel.dp_tp import DpTpIndex
+
+    missing = [n for n in ("gram_ptr2", "gram_terms2", "lens3") if n not in arrays]
+    if missing:
+        raise KeyError(f"missing 2-D postings arrays: {missing}")
+    return DpTpIndex(
+        sx=sx,
+        sg=int(meta["sg"]),
+        g_c=int(meta["g_c"]),
+        gram_ptr2=np.array(arrays["gram_ptr2"], np.int32),
+        gram_terms2=np.array(arrays["gram_terms2"], np.int32),
+        lens3=np.array(arrays["lens3"], np.int64),
+    )

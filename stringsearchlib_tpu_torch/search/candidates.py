@@ -123,7 +123,7 @@ def topk_chunked(u, k, chunk: int = _TOPK_CHUNK):
 
 def _finish_selected(
     di, pt, xt, t_sel, s_sel, sel_valid, u_c, covered, term_score,
-    promo_pack, limits, threshold, *, n_edge, top_k,
+    promo_pack, limits, threshold, *, n_edge, top_k, with_bound=False,
 ):
     """Back half of every candidate front end, batched: from selected
     (term id, exact score, validity) per query plus selection bounds to the
@@ -136,6 +136,12 @@ def _finish_selected(
     p_t (B, PK, PE), p_w (B, PK, PE))``.
 
     Returns (count (B,), keys (B, top_k), scores, key lengths, exact (B,)).
+    ``with_bound`` (the cross-shard merge of parallel.dist) returns
+    (reached total (B,), keys, scores, key lengths, bound (B,)) instead:
+    ``bound`` is a sound upper bound on the local contribution of any key
+    not in the returned slice - max(u_c, 0) for unselected terms unless
+    selection covered every passer, the top_k-th score when the slice
+    truncates, +inf on extra-edge overflow.
     """
     promo, p_t, p_w = promo_pack
     dev = t_sel.device
@@ -239,6 +245,17 @@ def _finish_selected(
     out_key = f_key.gather(1, order)
     out_score = f_score.gather(1, order)
 
+    if with_bound:
+        tau = torch.where(
+            reached_total > top_k, out_score[:, top_k - 1], neg_inf
+        )
+        miss = torch.where(covered, neg_inf, torch.clamp(u_c, min=0.0))
+        bound = torch.where(overflow, float("inf"), torch.maximum(miss, tau))
+        return (
+            reached_total, out_key[:, :top_k], out_score[:, :top_k],
+            out_len[:, :top_k], bound,
+        )
+
     # -- exactness ---------------------------------------------------------
     lim_idx = (limits.long() - 1).clamp(0, neg.shape[1] - 1)
     sigma_l = -neg_sorted.gather(1, lim_idx[:, None])[:, 0]
@@ -338,6 +355,7 @@ def _select_candidates(u_all, n_pass, *, n_cand: int, block_sel: bool):
 def _finish_candidates(
     di, pt, xt, u_all, s_all, gid_all, n_pass, term_score, promo_pack,
     limits, threshold, *, n_cand, n_edge, top_k, block_sel=False,
+    with_bound=False,
 ):
     """From per-lane upper bounds and scores (B, N) and the lanes' global
     term ids ``gid_all`` ((N,), or (B, N) where each query's lanes hold its
@@ -352,7 +370,7 @@ def _finish_candidates(
     return _finish_selected(
         di, pt, xt, t_sel, s_all.gather(1, sel_c), sel_valid, u_c,
         covered, term_score, promo_pack, limits, threshold, n_edge=n_edge,
-        top_k=top_k,
+        top_k=top_k, with_bound=with_bound,
     )
 
 
@@ -394,7 +412,7 @@ def _term_scorer(hits, n_qgrams, thr, ts, short=None):
 def _dense_hits_finish(
     di, pt, xt, hits, qtokens, qlens, n_qgrams, use_short, promo_ids,
     promo_terms, promo_weights, limits, threshold, *, compute_short,
-    n_cand, n_edge, top_k, block_sel,
+    n_cand, n_edge, top_k, block_sel, with_bound=False,
 ):
     """Back half for front ends that produce a dense (B, Tl_pad) exact hit
     matrix: per-lane scores and bounds over the whole lane space,
@@ -437,6 +455,7 @@ def _dense_hits_finish(
         di, pt, xt, u_all, s_all, gid_all, n_pass, term_score,
         (promo_ids, promo_terms, promo_weights), limits, threshold,
         n_cand=n_cand, n_edge=n_edge, top_k=top_k, block_sel=block_sel,
+        with_bound=with_bound,
     )
 
 
@@ -551,7 +570,7 @@ def _first_true(mask, vmax: int):
 def _hstar_finish(
     di, pt, xt, hits, hmax, qtokens, qlens, n_qgrams, use_short, promo_ids,
     promo_terms, promo_weights, limits, threshold, *, compute_short,
-    kb1, kb2, n_cand, n_edge, top_k, vmax, blk=_BLK, fill=2,
+    kb1, kb2, n_cand, n_edge, top_k, vmax, blk=_BLK, fill=2, with_bound=False,
 ):
     """Integer hit-threshold (h*) selection over a huge hit matrix, batched.
 
@@ -737,7 +756,7 @@ def _hstar_finish(
         di, pt, xt, t_sel, s_sel, sel_valid, u_c, covered,
         _term_scorer(hits, n_qgrams, thr, ts, short),
         (promo_ids, promo_terms, promo_weights), limits, threshold,
-        n_edge=n_edge, top_k=top_k,
+        n_edge=n_edge, top_k=top_k, with_bound=with_bound,
     )
 
 
@@ -993,18 +1012,20 @@ def candidates_matmul(
     kb1: int = 512,
     kb2: int = 512,
     hs_fill: int = 2,
+    with_bound: bool = False,
 ):
     """Exact hit counts for the whole batch as one product of the query
     gram multiplicities with the dense incidence (``gram_hits``), then the
     h* finish (uniform weights, <= 127 gram windows: the hits narrowed to
     int8, padded to 1024-lane multiples, 128-lane block maxima) or the
     dense-hits finish, as the reference's candidates_matmul_impl.  The
-    reference leaves the product to XLA outside any Pallas kernel."""
+    reference leaves the product to XLA outside any Pallas kernel.
+    ``with_bound``: the per-shard form (``_finish_selected``)."""
     ts, tl = di.n_short, di.n_long
     compute_short = compute_short and ts > 0
     hits = gram_hits(qslots, gram_matrix)[:, :tl]
     kw = dict(compute_short=compute_short, n_cand=n_cand, n_edge=n_edge,
-              top_k=top_k)
+              top_k=top_k, with_bound=with_bound)
     args = (qtokens, qlens, n_qgrams, use_short, promo_ids, promo_terms,
             promo_weights, limits, threshold)
     if hstar and qslots.shape[1] <= 127:
@@ -1048,6 +1069,7 @@ def candidates_runs(
     n_edge: int,
     top_k: int,
     block_sel: bool = False,
+    with_bound: bool = False,
 ):
     """Hit counts from each query's own postings, as the reference's
     candidates_runs_impl with its batch dimension written out: every
@@ -1056,7 +1078,8 @@ def candidates_runs(
     the lanes sort so each term's postings form a run, a run's
     length is the term's hit count, and each run's first lane carries the
     term's score and bound.  Work follows the batch's posting mass, not the
-    index size, and no table is built."""
+    index size, and no table is built.  ``with_bound``: the per-shard form
+    (``_finish_selected``)."""
     ts, tl = di.n_short, di.n_long
     compute_short = compute_short and ts > 0
     t_total = ts + tl
@@ -1140,4 +1163,5 @@ def candidates_runs(
         di, pt, xt, u_all, s_all, gid_all, n_pass, term_score,
         (promo_ids, promo_terms, promo_weights), limits, threshold,
         n_cand=n_cand, n_edge=n_edge, top_k=top_k, block_sel=block_sel,
+        with_bound=with_bound,
     )

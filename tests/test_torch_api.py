@@ -432,7 +432,8 @@ def test_every_port_module_imports_without_jax():
         " or k == 'stringsearchlib_tpu' or k.startswith('stringsearchlib_tpu.'));"
         "assert not bad, bad;"
         "need = {'api.capi', 'api.cabi', 'api.registry', 'index.serialize',"
-        " 'utils.metrics', 'utils.oracle'};"
+        " 'utils.metrics', 'utils.oracle', 'utils.capacity', 'parallel',"
+        " 'parallel.dist', 'parallel.tp', 'parallel.dp_tp', 'parallel.multihost'};"
         "assert need <= {n.split('.', 1)[1] for n in names}, names;"
         "print('ok', len(names))"
     )
@@ -446,3 +447,11 @@ def test_every_port_module_imports_without_jax():
     smoke = open(os.path.join(ROOT, "chip_smoke.py")).read()
     banned = re.compile(r"\s*(from|import)\s+(jax|stringsearchlib_tpu)\b")
     assert not [ln for ln in smoke.splitlines() if banned.match(ln)]
+    # the multi-process worker entry (tests/test_torch_multihost.py --worker)
+    # imports no jax either: only its golden-result helper, which no worker
+    # runs, imports the reference
+    worker = open(os.path.join(ROOT, "tests", "test_torch_multihost.py")).read()
+    top = [ln for ln in worker.splitlines() if not ln.startswith(" ")]
+    assert not [ln for ln in top if banned.match(ln)]
+    body = worker.split("def _worker(")[1].split("\ndef ")[0]
+    assert not [ln for ln in body.splitlines() if banned.match(ln)]

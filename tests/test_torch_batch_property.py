@@ -1,10 +1,8 @@
 """Batched search against the oracle in both packages: the reference's
 tests/test_batch_property.py (every mode and front end, gram sizes 2-4,
 narrow and wide strings) and tests/test_length_tiers.py (the
-length-sorted long tier and its width-bucketed DP), each parametrised over
-the JAX package and the PyTorch port on the CPU.  The reference's sharding
-case of test_length_tiers.py belongs to the sharded engines, which the port
-does not have yet."""
+length-sorted long tier and its width-bucketed DP, and its sharding case),
+each parametrised over the JAX package and the PyTorch port on the CPU."""
 
 import random
 from collections import defaultdict
@@ -14,10 +12,12 @@ import pytest
 
 from stringsearchlib_tpu.config import IndexConfig as JConfig
 from stringsearchlib_tpu.index.build import build_index as jbuild
+from stringsearchlib_tpu.parallel.dist import shard_index as jshard_index
 from stringsearchlib_tpu.search.engine import SearchEngine as JEngine
 from stringsearchlib_tpu.utils.oracle import OracleIndex as JOracle
 from stringsearchlib_tpu_torch.config import IndexConfig as PConfig
 from stringsearchlib_tpu_torch.index.build import build_index as pbuild
+from stringsearchlib_tpu_torch.parallel.dist import shard_index as pshard_index
 from stringsearchlib_tpu_torch.search.engine import SearchEngine as PEngine
 from stringsearchlib_tpu_torch.utils.oracle import OracleIndex as POracle
 
@@ -194,3 +194,26 @@ def test_tiered_matches_longer_queries_too(pkg):
         )
     res = engine_cls(host_n).search("ABCDEFGH", 0.0, 10)
     assert len(res[0]) <= 10
+
+
+@pytest.mark.parametrize("name", sorted(PKGS))
+def test_strided_sharding_balances_sorted_tier(name):
+    """The length-sorted long tier must not skew posting mass onto the
+    last shard: strided assignment keeps shards balanced AND each shard's
+    local tier length-ascending (tests/test_length_tiers.py's sharding
+    case; the host index stays on the host)."""
+    build = PKGS[name][0]
+    shard_index = {"jax": jshard_index, "torch": pshard_index}[name]
+    rng = np.random.default_rng(23)
+    kw = {"to_device": False} if name == "jax" else {}
+    host = build(_skewed_words(rng, 600), 1, None, {}, **kw)
+    sx = shard_index(host, 4)
+    per_shard = sx.host_shard_posting_lens.sum(axis=1)
+    assert per_shard.sum() == int(np.asarray(host.device.gram_ptr)[-1])
+    # contiguous chunks over the sorted tier would put ALL the 150+ char
+    # terms (and their postings) on the last shard; strided stays tight
+    assert per_shard.max() <= 1.25 * max(per_shard.min(), 1), per_shard
+    ll = sx.leaves["long_lengths"]
+    for i in range(4):
+        row = ll[i][ll[i] > 0]
+        assert np.all(row[:-1] <= row[1:])

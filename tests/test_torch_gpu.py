@@ -731,3 +731,122 @@ def test_cabi_function_table_on_cuda(cuda, tmp_path):
     ct.cast(tbl["dispose"][1], cabi._DISPOSE_SIG)(h)
     capi.dispose(h2)
     assert capi.getSize(h) == 0
+
+
+# -- the sharded engines on the card ------------------------------------------
+
+
+def _sharded_queries(words, n, seed):
+    rng = random.Random(seed)
+    return [w[:-1] + "x" if i % 2 else w
+            for i, w in enumerate(rng.choice(words) for _ in range(n))]
+
+
+def test_meshes_default_to_cuda(cuda):
+    from stringsearchlib_tpu_torch.parallel.dist import make_mesh
+
+    mesh = make_mesh(1)
+    assert mesh.devices[0].type == "cuda"
+    assert make_mesh(4, device="cuda").devices == (mesh.devices[0],) * 4
+
+
+@pytest.mark.parametrize("front", ["matmul", "runs"])
+def test_sharded_engine_on_cuda_matches_cpu(cuda, front):
+    """ShardedEngine on four shards of one card against the same on the
+    CPU: the candidate fronts (torch._int_mm or K6's expansion per shard),
+    the brute tier (K5 per shard), the dense retry and the wildcard."""
+    from stringsearchlib_tpu_torch.parallel.dist import (
+        ShardedEngine, make_mesh, shard_index,
+    )
+
+    words, weights = _weighted_corpus(3000, seed=47)
+    host = build_index(words, 2, weights[: len(words)], IndexConfig(), device="cpu")
+    sx = shard_index(host, 4)
+    engines = [ShardedEngine(sx, make_mesh(4, device=d)) for d in ("cpu", cuda)]
+    if front == "runs":
+        for e in engines:
+            e.GM_BUDGET = 0
+    queries = _sharded_queries(words, 32, 17) + ["ka", "lo", "*", "me ri"]
+    counts = (pdp.K5_LAUNCHES, pvg.EXPAND_LAUNCHES, pc.INT_MM_CALLS)
+    refs = (pdp.K5_REF_CALLS, pvg.K6_REF_CALLS)
+    got = engines[1].search_batch(queries, 0.25, 10)
+    torch.cuda.synchronize()
+    assert engines[1].last_routing["variant"] == front
+    assert (pdp.K5_REF_CALLS, pvg.K6_REF_CALLS) == refs
+    assert pdp.K5_LAUNCHES > counts[0]  # the brute queries' tiers
+    if front == "runs":
+        assert pvg.EXPAND_LAUNCHES >= counts[1] + 4
+    else:
+        assert pc.INT_MM_CALLS >= counts[2] + 4
+    assert got == engines[0].search_batch(queries, 0.25, 10)
+    assert engines[1].search_batch(queries[:8], 0.3, 0) == \
+        engines[0].search_batch(queries[:8], 0.3, 0)
+
+
+def test_tp_and_dp_tp_on_cuda_match_cpu(cuda):
+    """GramShardedEngine and DpTpEngine on one card against the CPU: the
+    summed per-shard expansions (K6) and the dense and brute tiers (K5)."""
+    from stringsearchlib_tpu_torch.parallel.dist import make_mesh
+    from stringsearchlib_tpu_torch.parallel.dp_tp import (
+        DpTpEngine, make_mesh_2d, shard_index_2d,
+    )
+    from stringsearchlib_tpu_torch.parallel.tp import (
+        GramShardedEngine, shard_index_by_grams,
+    )
+
+    words, weights = _weighted_corpus(2000, seed=49)
+    host = build_index(words, 1, weights, IndexConfig(), device="cpu")
+    gx = shard_index_by_grams(host, 4)
+    dx = shard_index_2d(host, 2, 2)
+    queries = _sharded_queries(words, 24, 19) + ["ka", "su", "*"]
+    for mk in (lambda d: GramShardedEngine(gx, make_mesh(4, "grams", device=d)),
+               lambda d: DpTpEngine(dx, make_mesh_2d(2, 2, device=d))):
+        cpu, card = mk("cpu"), mk(cuda)
+        launches = (pvg.EXPAND_LAUNCHES, pdp.K5_LAUNCHES)
+        for mode in ("auto", "candidates", "dense"):
+            got = card.search_batch(queries, 0.2, 10, mode=mode)
+            torch.cuda.synchronize()
+            assert got == cpu.search_batch(queries, 0.2, 10, mode=mode), mode
+        assert pvg.EXPAND_LAUNCHES > launches[0] and pdp.K5_LAUNCHES > launches[1]
+
+
+def test_multihost_on_cuda_over_gloo(cuda, tmp_path):
+    """Two processes x two shards on the one card over gloo (the
+    collectives staged through host memory) equal the CPU engine."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from stringsearchlib_tpu_torch.parallel.dist import (
+        ShardedEngine, make_mesh, shard_index,
+    )
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    outs = [str(tmp_path / f"w{i}.json") for i in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(here, "test_torch_multihost.py"), "--worker",
+         "--coordinator", f"127.0.0.1:{port}", "--nprocs", "2", "--pid", str(i),
+         "--out", outs[i], "--shards-per-proc", "2", "--device", "cuda:0"],
+        env=env, cwd=os.path.dirname(here)) for i in range(2)]
+    try:
+        assert [p.wait(timeout=120) for p in procs] == [0, 0]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    res = [json.load(open(o)) for o in outs]
+    sys.path.insert(0, here)
+    import test_torch_multihost as mh
+
+    host = build_index(mh.WORDS, 1, None, IndexConfig(), device="cpu")
+    want = mh._rounded(ShardedEngine(shard_index(host, 4), make_mesh(4, device="cpu"))
+                       .search_batch(mh.QUERIES, 0.2, 10))
+    assert res[0]["results"] == res[1]["results"] == want
