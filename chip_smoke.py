@@ -35,7 +35,9 @@ Drives the port's candidate paths on one CUDA card, through
   * the sharded engines (``parallel``): the term-sharded engine on the
     10M-key index at 8 and 4 shards of the one card, the gram-sharded and
     DP x TP engines on dense_1m's index, and two processes x two shards
-    over gloo.
+    over gloo;
+  * ``bench.py``'s ``rich_1m`` (1M gram-rich keys, 46,656 grams): K1 and
+    the h* finish over a 47,104-row packed table.
 
 It also launches the K1 probes P1-P9 (``ops.probes``, the port of the
 reference's probe tools) at their tools' full shapes while the 10M-key
@@ -44,7 +46,7 @@ table is resident.
 Phases, each printing one line with its seconds; any failure raises, so the
 script exits non-zero and prints no final ``ok`` line.  They run in the
 order 1-3, 15, 4-5, 21, 6, 11-12, 23-24, 7-10, 22, 16, 18-19, 13-14, 17,
-20, 25-26:
+20, 25-26, 27:
 
   1. device: a CUDA card is required; prints nvidia-smi's name and power
      limit;
@@ -52,8 +54,10 @@ order 1-3, 15, 4-5, 21, 6, 11-12, 23-24, 7-10, 22, 16, 18-19, 13-14, 17,
      source, started together) and the native index builder with g++, and
      says whether the native builder loaded; prints ptxas's registers and
      spills of K5's instances, of K6's expansion kernel and of the probe
-     kernels' instances, and fails on a spill in K5's register instances,
-     the expansion kernel or a probe instance, or on a missing instance;
+     kernels' instances and of K6's gather kernel (per index type), and
+     fails on a spill in K5's register instances,
+     the expansion kernel, a gather kernel or a probe instance, or on a
+     missing instance;
   3. K1 against its plain PyTorch version on random tables (every bit set
      somewhere, bit 7 included; multiplicities summing to 31 and to 127)
      and on the edges of its bit-sliced counters (``_edge_cases``:
@@ -67,9 +71,11 @@ order 1-3, 15, 4-5, 21, 6, 11-12, 23-24, 7-10, 22, 16, 18-19, 13-14, 17,
      K1 launches; then times 64 single queries;
   5. K1 on the real table: on the whole resident table with real queries'
      counts at B = 256 and at the engine's step, bit-identical to the plain
-     version; both timed with CUDA events, the kernel also in device time,
-     beside the bound, the listed (query, row) pairs and the integer-issue
-     time of the kernel's schedule (``_hits_issue``);
+     version; both timed with CUDA events, the kernel also in device time
+     (traced, queued, and queued with the L2 flushed before each call; and
+     the kernel alone on its compacted lists), beside the bound, the listed
+     (query, row) pairs and the integer-issue time of the kernel's schedule
+     (``_hits_issue``);
   6. exactness: 32 queries again through the dense path, requiring the
      same (score, key length) tie groups holding the same keys;
   7. K2 against its plain version on random tables (Gp 128 / 2816 / 8192,
@@ -80,7 +86,8 @@ order 1-3, 15, 4-5, 21, 6, 11-12, 23-24, 7-10, 22, 16, 18-19, 13-14, 17,
      requires the sketch_packed route, K2 launches and no plain calls;
   9. K2 on the real sketch table with real queries' bucket counts at
      B = 256 and at the engine's step, bit-identical to the plain version;
-     timed as in phase 5;
+     timed as in phase 5 (``_hits_kernel_alone``: the flushed time settles
+     a reading under the byte bound);
   10. 2-D exactness: 32 of those queries again through the dense path, the
      same tie groups;
   11. the row gather against its plain version on random tables: row-major
@@ -109,11 +116,16 @@ order 1-3, 15, 4-5, 21, 6, 11-12, 23-24, 7-10, 22, 16, 18-19, 13-14, 17,
      timed with CUDA events and in device time beside the least-work bound
      (operations at the card's INT32 rate) and the DP-cell bound, with
      the launch plan;
-  16. K6's gather against its plain version on random (B, s_cap) indices
-     into the 2-D index's gram_terms, out of range on both sides, sorted
-     and unsorted, int64 and int32, one and two tables; bit-identical,
-     timed per call and in device time beside ``torch.take`` on the
-     clamped indices and the bound (distinct 32-byte sectors);
+  16. K6's gather (``gather_tables``, its one pass in row order) against
+     its plain version on random (B, C) indices into the 2-D index's
+     gram_terms, out of range on both sides: 256 x 65,536 sorted int64
+     (the random shape), 256 x 1,024 sorted int64 (the wide g3 route's
+     old-path shape), unsorted, int32 over two tables; bit-identical, and
+     in turns with ``torch.take`` on the clamped indices, per call and in
+     device time, beside the bound (distinct 32-byte sectors); the edges
+     (1 and 4 tables, both index types, -1 and >= T, T = 0, ragged tails,
+     NaN / -0.0 / int32-min fills); the wrapper's host microseconds by
+     piece at the route shape;
   17. wide_100k_g3: 256 queries; route runs, K5 and postings-expansion
      launches, no plain calls; 32 queries against the dense path; q/s, a
      traced batch, and K5 and the expansion on the very operands a batch
@@ -136,13 +148,13 @@ order 1-3, 15, 4-5, 21, 6, 11-12, 23-24, 7-10, 22, 16, 18-19, 13-14, 17,
      path; q/s and single p50/p90;
   21. the K1 probes: P1-P9 against their plain versions at random and edge
      shapes (``_probe_random``), then the probe tools' cases at full shape
-     (``_probe_phase``): P1, P8 (B = 256 and 512) and P9's six variants on
-     the 10M table in the reference's row-major layout with the headline's
-     first 256 queries, P2-P7 on the 2,560-tile synthetic table in both
-     layouts; every count set to 0, each case driven once, the counts read;
-     then each case held against its plain version and timed (CUDA events
-     per call, calls queued behind a spin kernel, the plain version, the
-     bound, ``torch.amax`` for P1-P3);
+     (``_probe_phase``): P1, P8 (int16 and int32, B = 256 and 512) and
+     P9's six variants on the 10M table in the reference's row-major layout
+     with the headline's first 256 queries, P2-P7 on the 2,560-tile
+     synthetic table in both layouts; every count set to 0, each case
+     driven once, the counts read; then each case held against its plain
+     version and timed (CUDA events per call, calls queued behind a spin
+     kernel, the plain version, the bound, ``torch.amax`` for P1-P3);
   22. the unpacked sketch on the 2-D index (before it is freed): its table
      (D, bytes, build seconds); (a) phase 8's 1,024 queries with
      SKETCH_PACKED off: every candidate pass ``sketch``, ``_int_mm`` calls
@@ -197,7 +209,15 @@ order 1-3, 15, 4-5, 21, 6, 11-12, 23-24, 7-10, 22, 16, 18-19, 13-14, 17,
      256 headline-style queries, then 16 of 1-3 characters and the
      wildcard; both processes' results equal one process's ShardedEngine
      at S = 4 on the resident index; wall and collective seconds per
-     process (gloo over host memory, not a multi-card figure).
+     process (gloo over host memory, not a multi-card figure);
+  27. rich_1m (``bench.py:285-287``): builds 1M ``bench._rich_names`` keys
+     and the packed table (47,104 rows within BITMAP_BUDGET); one warm-up
+     and three timed batches of 512 queries; every first pass bitmap_kernel
+     with h*, K1 launches, no plain calls; 32 queries against the dense
+     path; K1 at B = 256 and the step bit-identical to its plain version
+     and timed beside its bound; build seconds, table bytes, routing (the
+     port's ``gtile`` False against the reference's True), q/s; the index
+     freed after.
 
 The line before the last is a JSON object describing the TPU kernels'
 ports (K1-K6, the postings expansion, P1-P9); the last line is ``{"ok":
@@ -229,6 +249,7 @@ sys.path.insert(0, _ROOT)
 from stringsearchlib_tpu_torch.tools.common import PEAK_INT8, hits_bound  # noqa: E402
 from stringsearchlib_tpu_torch.tools.common import bound as _bound  # noqa: E402
 from stringsearchlib_tpu_torch.tools.common import cuda_ms as _cuda_ms  # noqa: E402
+from stringsearchlib_tpu_torch.tools.common import flushed_ms as _flushed_ms  # noqa: E402
 from stringsearchlib_tpu_torch.tools.common import max_abs_err as _max_abs_err  # noqa: E402
 from stringsearchlib_tpu_torch.tools.common import queued_ms as _queued_ms  # noqa: E402
 
@@ -519,6 +540,39 @@ def _counts() -> dict:
         "k6": k6.K6_LAUNCHES, "k6_plain": k6.K6_REF_CALLS,
         "expand": k6.EXPAND_LAUNCHES,
     }
+
+
+def _hits_kernel_alone(q, table, bmax: bool) -> dict:
+    """K1 (``bmax``) or K2 alone on ``q``'s compacted row lists, made once
+    (no compaction, no allocation per call), on ``table``:
+    device ms per call queued back to back, and with the L2 flushed before
+    each call (so no listed row is read from the L2 a previous call left
+    it in).  Table in either layout."""
+    import torch
+    from stringsearchlib_tpu_torch.ops import bitmap_matmul as bmm
+    from stringsearchlib_tpu_torch.ops import kernels
+
+    rows, mults = bmm._compact_qcnt(q)
+    b = q.shape[0]
+    ntiles, gp = bmm.table_shape(table)
+    hits = torch.empty((b, ntiles * bmm.TILE_LANES), dtype=torch.int8, device=q.device)
+    lib = kernels.lib("bitmap_hits")
+    stream = torch.cuda.current_stream().cuda_stream
+    major = "" if table.ndim == 3 else "_rowmajor"
+    if bmax:
+        blk = torch.empty((b, ntiles * 32), dtype=torch.int8, device=q.device)
+        launch = getattr(lib, f"bitmap_hits_bmax{major}_launch")
+
+        def run():
+            launch(table.data_ptr(), rows.data_ptr(), mults.data_ptr(), hits.data_ptr(),
+                   blk.data_ptr(), b, gp, ntiles, rows.shape[1], stream)
+    else:
+        launch = getattr(lib, f"bitmap_hits{major}_launch")
+
+        def run():
+            launch(table.data_ptr(), rows.data_ptr(), mults.data_ptr(), hits.data_ptr(),
+                   b, gp, ntiles, rows.shape[1], stream)
+    return {"queued_device_ms": _queued_ms(run, 10), "flushed_device_ms": _flushed_ms(run, 10)}
 
 
 def _hits_bound(q, ntiles: int, bmax: bool):
@@ -1099,37 +1153,56 @@ def _k5_random(gen, dev):
     return err, len(K5_CASES), timing
 
 
-def _gather_case(idx, tables, fills, what: str) -> dict:
-    """K6 against its plain version on one case, bit for bit, and both timed
-    with CUDA events (per call, host work included) and from a trace
-    (device time) beside ``torch.take`` on the clamped indices (the nearest
-    library call: no fill) and the bound."""
+def _gather_sides(idx, tables, fills) -> dict:
+    """The gathers timed in turns: the package's and ``torch.take`` on the
+    clamped indices (the nearest library call: one table, no fill)."""
     import torch
     from stringsearchlib_tpu_torch.ops import vgather as k6
 
-    got = k6.gather_tables(idx, tables, fills)
-    want = k6.gather_tables_ref(idx, tables, fills)
-    torch.cuda.synchronize()
-    err = 0  # over the outputs' 32-bit patterns
+    idc = idx.clamp(0, max(int(tables[0].shape[0]) - 1, 0)).long()
+    return {
+        "new": lambda: k6.gather_tables(idx, tables, fills),
+        "take": lambda: torch.take(tables[0], idc),
+    }
+
+
+def _gather_equal(got, want, what: str) -> int:
+    """Raises unless every output equals the plain version's bit for bit;
+    returns the largest difference of the 32-bit patterns (0)."""
+    import torch
+
+    err = 0
     for g, w in zip(got, want):
         gb, wb = g.view(torch.int32), w.view(torch.int32)
-        err = max(err, int((gb.long() - wb.long()).abs().max()))
-        if g.dtype != w.dtype or err or not torch.equal(gb, wb):
+        err = max(err, int((gb.long() - wb.long()).abs().max()) if gb.numel() else 0)
+        if g.dtype != w.dtype or g.shape != w.shape or err or not torch.equal(gb, wb):
             raise AssertionError(f"K6 differs from its plain version: {what} "
                                  f"max_abs_err={err}")
-    del got, want
+    return err
+
+
+def _gather_case(idx, tables, fills, what: str, reps: int = 10) -> dict:
+    """K6 against its plain version on one case, bit for bit, then the
+    sides of ``_gather_sides`` in turns (new, take, and back), per call
+    with CUDA events (host work included) and in device time (calls queued
+    behind a spin kernel), beside the plain version and the bound."""
+    from stringsearchlib_tpu_torch.ops import vgather as k6
+
+    want = k6.gather_tables_ref(idx, tables, fills)
+    sides = _gather_sides(idx, tables, fills)
+    err = _gather_equal(sides["new"](), want, what)
+    del want
     t_len = int(tables[0].shape[0])
-    idc = idx.clamp(0, t_len - 1).long()
     bound, by = _gather_bound(idx, t_len, len(tables))
+    ms = _in_turns(sides, lambda f: _cuda_ms(f, reps))
+    dev_ms = _in_turns(sides, lambda f: _queued_ms(f, reps))
     return {
         "shape": list(idx.shape), "index_dtype": str(idx.dtype).replace("torch.", ""),
         "tables": len(tables), "table_len": t_len, "max_abs_err": err,
-        "ms": _cuda_ms(lambda: k6.gather_tables(idx, tables, fills), 10),
+        "ms": _mean(ms["new"]), "device_ms": _mean(dev_ms["new"]),
+        "take_ms": _mean(ms["take"]), "take_device_ms": _mean(dev_ms["take"]),
+        "turns_ms": ms, "turns_device_ms": dev_ms,
         "plain_ms": _cuda_ms(lambda: k6.gather_tables_ref(idx, tables, fills), 3),
-        "take_ms": _cuda_ms(lambda: torch.take(tables[0], idc), 10),
-        "device_ms": _queued_ms(lambda: k6.gather_tables(idx, tables, fills)),
-        "plain_device_ms": _device_ms(lambda: k6.gather_tables_ref(idx, tables, fills), 5),
-        "take_device_ms": _device_ms(lambda: torch.take(tables[0], idc)),
         "bound_ms": bound, "bound_by": by,
     }
 
@@ -1147,7 +1220,7 @@ def _kernels_per_call(fn, reps: int = 5) -> dict:
 
 def _in_turns(sides: dict, timer) -> dict:
     """``timer`` on each of ``sides`` ({name: fn}) in order, then in reverse
-    (old, new, new, old): {name: its two readings}."""
+    (a, b, b, a): {name: its two readings}."""
     names = list(sides)
     res = {n: [] for n in names}
     for n in names + names[::-1]:
@@ -1220,11 +1293,12 @@ def _expand_case(args, what: str, reps: int = 20) -> dict:
 
 
 def _k6_random(gram_terms, dev):
-    """K6 against its plain version on random (B, s_cap) indices into a
-    real ``gram_terms`` (the 2-D index's), out of range on both sides:
-    sorted int64 rows as the postings expansions pass them, unsorted ones,
-    and int32 indices over two tables (int32 and float32).  Returns
-    (cases, timing)."""
+    """K6 against its plain version on random (B, C) indices into a real
+    ``gram_terms`` (the 2-D index's), out of range on both sides: sorted
+    int64 rows as the postings expansions pass them (256 x 65,536, the
+    random shape, and 256 x 1,024, the wide g3 route's old-path shape),
+    unsorted ones, and int32 indices over two tables (int32 and float32).
+    Returns (cases, timing)."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(66)
@@ -1233,6 +1307,7 @@ def _k6_random(gram_terms, dev):
     timing = {}
     for name, b, c, ordered, dt, two in (
         ("b256_c65536_sorted_int64", 256, 1 << 16, True, torch.int64, False),
+        ("b256_c1024_sorted_int64", 256, 1 << 10, True, torch.int64, False),
         ("b8_c1048576_unsorted_int64", 8, 1 << 20, False, torch.int64, False),
         ("b64_c65536_int32_two_tables", 64, 1 << 16, False, torch.int32, True),
     ):
@@ -1246,6 +1321,75 @@ def _k6_random(gram_terms, dev):
         timing[name] = _gather_case(idx, tables, fills, name)
         del idx
     return len(timing), timing
+
+
+def _k6_edges(gen, dev) -> int:
+    """K6's gather against the plain version, bit for bit, on its edges:
+    1 and 4 tables, int32 and int64 indices, indices -1 and >= T, T = 0,
+    ragged tails (B * C not a multiple of 4, rows that are no whole number
+    of index vectors), rows of 1.5 and 3 chunks in the row block order,
+    fills NaN, -0.0 and int32 min, no indices.  Returns the cases
+    checked."""
+    import torch
+    from stringsearchlib_tpu_torch.ops import vgather as k6
+
+    n = 0
+    for t_len in (0, 1, 10_007):
+        tabs = [torch.randint(-2**31, 2**31 - 1, (t_len,), generator=gen,
+                              dtype=torch.int32).to(dev),
+                torch.randn(t_len, generator=gen).to(dev),
+                torch.randn(t_len, generator=gen).to(dev),
+                torch.randint(-9, 9, (t_len,), generator=gen, dtype=torch.int32).to(dev)]
+        fills = [-(1 << 31), float("nan"), -0.0, 7]
+        for shape in ((7, 4099), (3, 1), (64, 256), (5, 6), (5, 1536), (0, 8)):
+            for dt in (torch.int32, torch.int64):
+                idx = torch.randint(-3, t_len + 3, shape, generator=gen).to(dt)
+                if idx.numel():
+                    idx.view(-1)[:2] = torch.tensor([-1, t_len])[: idx.numel()]
+                idx = idx.to(dev)
+                for nt in (1, 4):
+                    want = k6.gather_tables_ref(idx, tabs[:nt], fills[:nt])
+                    _gather_equal(k6.gather_tables(idx, tabs[:nt], fills[:nt]), want,
+                                  f"T={t_len} {shape} {dt} {nt} tables")
+                    n += 1
+    torch.cuda.synchronize()
+    return n
+
+
+def _k6_host(gram_terms, dev) -> dict:
+    """The gather's host microseconds per call at the route's old-path shape
+    (256 x 1,024 sorted int64), by piece: the whole of the package's
+    wrapper and ``torch.take``'s (time.perf_counter over 3,000 calls each,
+    in turns), and the wrapper's parts: the output's
+    ``torch.empty_like``, a ctypes call of the one pass that returns at
+    once (no indices), the checks."""
+    import torch
+    from stringsearchlib_tpu_torch.ops import vgather as k6
+
+    gen = torch.Generator(device=dev).manual_seed(68)
+    t_len = int(gram_terms.shape[0])
+    idx = torch.randint(-1, t_len, (256, 1024), generator=gen, device=dev).sort(dim=1).values
+    sides = _gather_sides(idx, [gram_terms], [t_len])
+    fn = k6._ONE_PASS or k6._bind()
+    zero = (0,) * 17
+    sides.update({
+        "empty_like": lambda: torch.empty_like(idx, dtype=torch.int32),
+        "ctypes_call": lambda: fn(*zero, 1, 0, 0),
+        "checks": lambda: k6._check(idx, [gram_terms], [t_len]),
+    })
+
+    def per_call_us(f, n=3000):
+        f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            f()
+        us = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    res = _in_turns(sides, per_call_us)
+    return {k: _mean(v) for k, v in res.items()} | {"turns_us": res}
 
 
 def _recorded_calls(mod, name: str, run) -> list:
@@ -1636,6 +1780,102 @@ def _matmul_1m(threshold, limit, dev):
     return info, (host, engine, words, queries, results)
 
 
+def _rich_1m(threshold, limit, dev):
+    """bench.py's rich_1m (bench.py:285-287): 1M ``bench._rich_names`` keys
+    (random alphanumerics of 8-30 characters, filling the trigram space:
+    46,656 grams), uniform weights, 512 ``bench._mutate`` queries under
+    ``random.Random(7)``, threshold 0.3, top-100, ``batch_bucket=512``.
+    Its gram matrix is over GM_BUDGET and its packed bitmap (47,104 rows)
+    within BITMAP_BUDGET, so every first pass must take K1 + h*; the
+    reference routes it the same with its G-tiled table (``gtile`` True in
+    BENCH_EXTRA.json), where the port's K1 takes any Gp through its
+    compacted row lists (``gtile`` False).  One warm-up and three timed
+    batches; 32 queries against the dense path; K1 on the resident table
+    at B = 256 and the route's step against its plain version, bit for
+    bit, timed (CUDA events, queued and L2-flushed device time) beside its
+    bound."""
+    import torch
+
+    import bench
+    from stringsearchlib_tpu_torch.config import IndexConfig
+    from stringsearchlib_tpu_torch.index import build as buildmod
+    from stringsearchlib_tpu_torch.ops import bitmap_matmul as bmm
+    from stringsearchlib_tpu_torch.search.candidates import query_counts
+    from stringsearchlib_tpu_torch.search.engine import SearchEngine
+
+    words = bench._rich_names(N_1M)
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    host = buildmod.build_index(words, 1, None, IndexConfig(), device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    breakdown = dict(buildmod.LAST_BUILD_BREAKDOWN)
+    engine = SearchEngine(host)
+    if host.gram_matrix(engine.GM_BUDGET) is not None:
+        raise AssertionError("rich_1m's gram matrix fits GM_BUDGET")
+    t1 = time.perf_counter()
+    bm = host.bitmap_tables(engine.BITMAP_BUDGET)
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t1
+    if bm is None:
+        raise AssertionError("rich_1m's packed table is over BITMAP_BUDGET")
+    table = bm[0]
+    rng = random.Random(7)
+    queries = [bench._mutate(rng, rng.choice(words)) for _ in range(N_QUERIES)]
+    _reset_counts()
+    (results, warm_s, rep_s), passes = _with_passes(
+        engine, lambda: _timed_batches(engine, queries, threshold, limit))
+    counts = _counts()
+    first = passes[0][2]
+    if first.get("variant") != "bitmap_kernel" or not first.get("hstar"):
+        raise AssertionError(f"a rich_1m first pass routed {first}")
+    if counts["k1"] <= 0 or any(counts[k] for k in counts if k.endswith("_plain")):
+        raise AssertionError(f"rich_1m counts {counts}")
+    _check_results(results, queries, threshold, limit)
+    _check_exact(engine, queries[:32], results[:32], threshold, limit)
+    items = [(pos, *engine._normalize_query(q), None) for pos, q in enumerate(queries)]
+    slots = engine._prep_rows(items, 32)[3]
+    gp, ntiles = int(table.shape[1]), int(table.shape[0])
+    k1 = {}
+    for b in sorted({256, int(first["step"])}):
+        q = query_counts(torch.from_numpy(np_tile(slots, b)).to(dev), gp)
+        kh, kb = bmm.bitmap_hits_bmax(q, table)
+        rh, rb = bmm.bitmap_hits_bmax_ref(q, table, chunk_tiles=16)
+        torch.cuda.synchronize()
+        err = max(_max_abs_err(kh, rh), _max_abs_err(kb, rb))
+        if err or not torch.equal(kh, rh) or not torch.equal(kb, rb):
+            raise AssertionError(f"K1 differs on rich_1m's table at B={b}: {err}")
+        del kh, kb, rh, rb
+        torch.cuda.empty_cache()
+        bound = _hits_bound(q, ntiles, bmax=True)
+        k1[b] = {
+            "ms": _cuda_ms(lambda: bmm.bitmap_hits_bmax(q, table), 5),
+            "device_ms": _queued_ms(lambda: bmm.bitmap_hits_bmax(q, table), 5),
+            "flushed_device_ms": _flushed_ms(lambda: bmm.bitmap_hits_bmax(q, table), 5),
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "listed_rows": int((q != 0).any(0).sum()), "max_abs_err": err,
+        }
+        del q
+        torch.cuda.empty_cache()
+    med = sorted(rep_s)[len(rep_s) // 2]
+    info = {
+        "n_keys": len(words), "n_terms": host.n_terms, "n_grams": host.n_grams,
+        "build_s": build_s, "build_breakdown": breakdown, "bitmap_table_s": table_s,
+        "table_bytes": int(table.numel()), "table_shape": list(table.shape),
+        "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
+        "qps_median": N_QUERIES / med, "rep_s": rep_s, "warmup_s": warm_s,
+        "routing_first_pass": first, "routing_last": dict(engine.last_routing),
+        "passes": len(passes), "counts": counts, "k1": k1,
+        "gtile_deviation": "the reference routes rich_1m with gtile True (its G-tiled "
+                           "table, BENCH_EXTRA.json); the port's K1 takes any Gp through "
+                           "its compacted row lists and reports gtile False",
+        "mean_results": sum(len(k) for k, _ in results) / len(results),
+    }
+    del table, bm, engine, host, words
+    torch.cuda.empty_cache()
+    return info
+
+
 # the K1 probes: (id, file:line of the TPU kernel's pallas_call)
 PROBES = (
     ("P1", "tools/probe_bandwidth.py:95"),
@@ -1743,7 +1983,9 @@ def _probe_phase(table, slots, dev) -> dict:
     qs = probe_layout.synthetic_queries(512, probe_layout.GP, dev)
     cases = (probe_layout.cases(t_row, t_tile, qs, 256)
              + [probe_bandwidth.p1_case(rm), probe_kernel_raw.raw_case(q, rm),
-                probe_kernel_raw.raw_case(q2, rm, "raw_hits_i16_b512")]
+                probe_kernel_raw.raw_case(q2, rm, "raw_hits_i16_b512"),
+                _raw_i32_case(q, rm, "raw_hits_i32_b256"),
+                _raw_i32_case(q2, rm, "raw_hits_i32_b512")]
              + probe_kernel_bisect.bisect_cases(q, rm))
     torch.cuda.synchronize()
     _reset_counts()
@@ -1761,10 +2003,24 @@ def _probe_phase(table, slots, dev) -> dict:
     if not all(parity.values()):
         raise AssertionError(f"pair variants differ from pair_row: {parity}")
     max_windows = int(q.sum(1).max())
-    del rm, q, q2, t_row, t_tile, qs, cases
+    del t_row, t_tile, qs, cases, rm, q, q2
     torch.cuda.empty_cache()
     return {"launches": launches, "results": results, "layout_parity": parity,
             "max_windows": max_windows}
+
+
+def _raw_i32_case(q, t, name: str):
+    """P8 (int32) on counts ``q`` and a row-major table ``t``."""
+    from stringsearchlib_tpu_torch.ops import bitmap_matmul as bmm
+    from stringsearchlib_tpu_torch.ops import probes
+    from stringsearchlib_tpu_torch.tools import common
+
+    ntiles = bmm.table_shape(t)[0]
+    nbytes, ops = common.hits_bound(q, ntiles, 4 * q.shape[0] * ntiles * 5 * bmm.BLKB)
+    return common.Case(
+        "P8", name, lambda: probes.raw_hits(q, t, i16=False),
+        lambda rows: probes.raw_hits_ref(q if rows is None else q[:rows], t, i16=False),
+        nbytes, ops, common.PEAK_INT8, query_axis=0)
 
 
 def _probe_entry(probe: str, line: str, run: dict, edges: dict, ptxas: dict) -> dict:
@@ -1787,6 +2043,7 @@ def _probe_entry(probe: str, line: str, run: dict, edges: dict, ptxas: dict) -> 
                   for r in mine},
         "edge_cases": edges[probe][0],
         **({"ptxas": ptxas["stream"]} if probe in ("P1", "P2", "P3") else {}),
+        **({"raw32_ptxas": ptxas["raw32 qpb16"]} if probe in ("P8", "P9") else {}),
     }
 
 
@@ -2749,6 +3006,16 @@ def _phases(args, smi: str, kind: str, count: int, dev, oracle_job, oracle_10m) 
     if len(expand_ptxas) != 1 or expand_ptxas[0]["spill_stores"] or expand_ptxas[0]["spill_loads"]:
         raise AssertionError(f"K6's expansion kernel: {expand_ptxas}")
     expand_ptxas = expand_ptxas[0]
+    # K6's gather kernel, per index type
+    gather_ptxas = {}
+    for fn, (r, st, ld) in hits_ab._ptxas(logs["gather_tables"]["ptxas"]).items():
+        m = re.search(r"gather_tables_kernelI([ix])E", fn)
+        if m:
+            key = {"i": "int32", "x": "int64"}[m.group(1)]
+            gather_ptxas[key] = {"registers": r, "spill_stores": st, "spill_loads": ld}
+    if (len(gather_ptxas) != 2
+            or any(v["spill_stores"] or v["spill_loads"] for v in gather_ptxas.values())):
+        raise AssertionError(f"K6's gather kernels: {gather_ptxas}")
     # the probe instances: 7 epilogues at 16 queries a block, P6's at 32, the stream
     epi_names = {str(code): name for name, (code, _, _) in probes.EPILOGUES.items()}
     probe_ptxas = {}
@@ -2763,6 +3030,7 @@ def _phases(args, smi: str, kind: str, count: int, dev, oracle_job, oracle_10m) 
     _phase("build", t0, kernel_sos=",".join(os.path.relpath(p, _ROOT) for p in sos.values()),
            native_builder=native, k5_ptxas=json.dumps(k5_ptxas, separators=(",", ":")),
            expand_ptxas=json.dumps(expand_ptxas, separators=(",", ":")),
+           gather_ptxas=json.dumps(gather_ptxas, separators=(",", ":")),
            probe_ptxas=json.dumps(probe_ptxas, separators=(",", ":")))
 
     # -- 3. K1 vs plain, random tables -------------------------------------
@@ -2911,6 +3179,9 @@ def _phases(args, smi: str, kind: str, count: int, dev, oracle_job, oracle_10m) 
         bound = _hits_bound(q, int(table.shape[0]), bmax=True)
         timing[b] = {
             "k1_ms": k_ms, "device_ms": _device_ms(lambda: bmm.bitmap_hits_bmax(q, table), 5),
+            "queued_device_ms": _queued_ms(lambda: bmm.bitmap_hits_bmax(q, table), 5),
+            "flushed_device_ms": _flushed_ms(lambda: bmm.bitmap_hits_bmax(q, table), 5),
+            "kernel_alone": _hits_kernel_alone(q, table, bmax=True),
             "plain_ms": p_ms, "bound_ms": bound[0], "bound_by": bound[1],
             **_hits_issue(q, int(table.shape[0])),
             "hits_gb_per_s": hbytes / k_ms / 1e6,
@@ -3102,6 +3373,9 @@ def _phases(args, smi: str, kind: str, count: int, dev, oracle_job, oracle_10m) 
         bound = _hits_bound(q, int(inc.shape[0]), bmax=False)
         k2_timing[b] = {
             "k2_ms": k_ms, "device_ms": _device_ms(lambda: bmm.bitmap_hits(q, inc), 5),
+            "queued_device_ms": _queued_ms(lambda: bmm.bitmap_hits(q, inc), 10),
+            "flushed_device_ms": _flushed_ms(lambda: bmm.bitmap_hits(q, inc), 10),
+            "kernel_alone": _hits_kernel_alone(q, inc, bmax=False),
             "plain_ms": p_ms, "bound_ms": bound[0], "bound_by": bound[1],
             **_hits_issue(q, int(inc.shape[0])),
             "hits_gb_per_s": b * tg.shape[0] / k_ms / 1e6,
@@ -3133,8 +3407,14 @@ def _phases(args, smi: str, kind: str, count: int, dev, oracle_job, oracle_10m) 
     t0 = time.perf_counter()
     k6_cases, k6_timing = _k6_random(host2.device.gram_terms, dev)
     print(json.dumps({"k6_random_timing": k6_timing, "card": smi}), flush=True)
+    k6_edges = _k6_edges(gen, dev)
+    k6_host = _k6_host(host2.device.gram_terms, dev)
+    print(json.dumps({"k6_host_us": k6_host, "card": smi}), flush=True)
     k6_err = max(c["max_abs_err"] for c in k6_timing.values())
-    _phase("k6_random", t0, cases=k6_cases, max_abs_err=k6_err)
+    k6_rand = k6_timing["b256_c65536_sorted_int64"]
+    _phase("k6_random", t0, cases=k6_cases, edge_cases=k6_edges, max_abs_err=k6_err,
+           random_device_ms=round(k6_rand["device_ms"], 4),
+           take_device_ms=round(k6_rand["take_device_ms"], 4))
 
     # -- 18. tiny runs on the 2-D index ------------------------------------------
     t0 = time.perf_counter()
@@ -3199,6 +3479,14 @@ def _phases(args, smi: str, kind: str, count: int, dev, oracle_job, oracle_10m) 
     del dense_1m
     torch.cuda.empty_cache()
 
+    # -- 27. rich_1m: K1 + h* over a 47k-row packed table ------------------------
+    t0 = time.perf_counter()
+    rich = _rich_1m(threshold, limit, dev)
+    print(json.dumps({"rich_1m": rich, "card": smi}), flush=True)
+    _phase("rich_1m", t0, qps=round(rich["qps_median"], 2), build_s=round(rich["build_s"], 2),
+           table_bytes=rich["table_bytes"], k1_launches=rich["counts"]["k1"],
+           gp_rows=rich["routing_first_pass"]["gp_rows"])
+
     # -- 24, concluded: phase 24's first queries against the oracle ------------
     t0 = time.perf_counter()
     sharded["oracle"] = _sharded_oracle(sharded_first, queries, limit, oracle_10m)
@@ -3237,6 +3525,8 @@ def _phases(args, smi: str, kind: str, count: int, dev, oracle_job, oracle_10m) 
         "bound_ms": timing[256]["bound_ms"],
         "bound_by": timing[256]["bound_by"],
         "library_ms": None,
+        "rich_1m": {"launches": rich["counts"]["k1"], "gp_rows": int(rich["table_shape"][1]),
+                    **{f"b{b}": v for b, v in rich["k1"].items()}},
     }, {
         "name": "bitmap_hits",
         "route": "cuda",
@@ -3296,7 +3586,14 @@ def _phases(args, smi: str, kind: str, count: int, dev, oracle_job, oracle_10m) 
         "plain_ms": k6_real["plain_ms"],
         "bound_ms": k6_real["bound_ms"],
         "bound_by": k6_real["bound_by"],
-        "library_ms": None,
+        "library_ms": k6_real["take_ms"],
+        "library": "torch.take on the clamped indices (no fill)",
+        "random_shape": {k: k6_rand[k] for k in (
+            "shape", "ms", "device_ms", "take_ms", "take_device_ms", "plain_ms",
+            "bound_ms")},
+        "edge_cases": k6_edges,
+        "host_us": {k: v for k, v in k6_host.items() if k != "turns_us"},
+        "ptxas": gather_ptxas,
     }, {
         "name": "expand_postings",
         "route": "cuda",

@@ -3,24 +3,39 @@
 // gather_tables_launch: the filled gather of up to four 1-D tables at the
 // same indices: out_k[e] = table_k[idx[e]] where 0 <= idx[e] < T, else
 // fill_k, for the (B, C) index matrix idx (int32 or int64) and 4-byte
-// tables (int32 or float32, moved as raw words).
+// tables (int32 or float32, moved as raw words).  One pass.
 //
-// Replaces the TPU kernel of tools/experimental/vgather.py (_gather_kernel
-// :41, _gather_call :65, pallas_call :74, gather_tables :90).  That kernel
-// walked the table in VMEM-sized tiles over a sequential grid and served
-// every index from the resident tile, because the TPU lowers a 1-D dynamic
-// gather element by element; it never lowered on Mosaic.  On an H100 the
-// gather is native: every element's word is one read through the
-// read-only path.
+// It replaces the TPU kernel of tools/experimental/vgather.py
+// (_gather_kernel :41, _gather_call :65, pallas_call :74, gather_tables
+// :90).  That kernel walked the table in VMEM-sized tiles over a sequential
+// grid and served every index from the resident tile, because the TPU
+// lowers a 1-D dynamic gather element by element; it never lowered on
+// Mosaic.  On an H100 the gather is native: every element's word is one
+// read through the read-only path.
 //
 // What bounds it on an H100: bytes.  Each element moves its index (4 or 8
-// bytes, read once), one 4-byte word of each table (a 32-byte sector from a
-// random place unless neighbouring indices share it: sorted indices mostly
-// do) and one 4-byte word written per table.  So one thread takes 16 bytes
-// of indices (four int32 or two int64) with one vector load, issues all its
-// table reads before its stores, and writes each table's output as one
-// vector.  No shared memory: nothing is reused across threads.  The kernel
-// allocates nothing and does not synchronise.
+// bytes, read once), one 4-byte word of each table and one 4-byte word
+// written per table.  The least the card reads of a table is each distinct
+// 32-byte sector the indices touch, once.
+//
+// The one pass: one thread takes 16 bytes of indices (four int32 or two
+// int64) with one vector load, issues all its table reads before its
+// stores, and writes each table's output as one vector where the outputs
+// are 16-byte aligned.  No shared memory: nothing is reused across threads.
+// Where the tables fit the L2 (50 MB on an H100) a sector that several
+// indices share is read from device memory about once.  Where they do not,
+// random indices read a 32-byte sector from device memory for every
+// element, about five times the distinct sectors at 256 x 65,536 indices
+// into 37.6M words.  So a block takes a chunk of one row, the row fastest
+// in the grid: the blocks in flight hold the same few column chunks of
+// every row, and where each row is sorted (as the postings expansion's
+// indices are, run by run) they read one narrow slice of the tables, which
+// the L2 keeps while the rows' chunks ask for it.  (Serving the indices
+// range by range in passes that keep each range's slice in the L2, whatever
+// their order, was measured and did not beat this order: PERF.md.)
+//
+// It allocates nothing, does not synchronise, and returns
+// cudaGetLastError().
 //
 // expand_postings_launch: the postings expansion, the same TPU kernel at the
 // indices the reference computes in stringsearchlib_tpu/search/overlap.py
@@ -67,15 +82,24 @@ struct Tables {
   uint32_t fill[kMaxTables];
 };
 
+// One block per chunk of kThreads * V indices of one row of the (rows,
+// cols) index matrix, the row fastest: the blocks in flight hold the same
+// few column chunks of every row, so where the rows are sorted they read
+// one narrow slice of the tables, which the L2 keeps while it is served
+// (rows 1: the chunks in order, which the wrapper asks for where a row is
+// narrower than a chunk).  cols % V == 0 where rows > 1, so every thread's
+// V indices are one aligned vector.  vec: every dst is 16-byte aligned.
 template <typename I>
 __global__ void __launch_bounds__(kThreads)
-gather_tables_kernel(const I* __restrict__ idx, Tables tb, long long total,
-                     long long t_len, int n_tables) {
+gather_tables_kernel(const I* __restrict__ idx, Tables tb, long long rows,
+                     long long cols, long long t_len, int n_tables, bool vec) {
   constexpr int V = 16 / sizeof(I);
-  const long long v = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const long long e0 = v * V;
-  if (e0 >= total) return;
-  const bool full = e0 + V <= total;
+  const long long row = (long long)blockIdx.x % rows;
+  const long long col = (long long)blockIdx.x / rows * (kThreads * V) + threadIdx.x * V;
+  if (col >= cols) return;
+  const long long e0 = row * cols + col;
+  const long long v = e0 / V;
+  const bool full = col + V <= cols;
   union {
     uint4 raw;
     I ix[V];
@@ -84,7 +108,7 @@ gather_tables_kernel(const I* __restrict__ idx, Tables tb, long long total,
     u.raw = __ldg(reinterpret_cast<const uint4*>(idx) + v);
   } else {
 #pragma unroll
-    for (int k = 0; k < V; ++k) u.ix[k] = e0 + k < total ? idx[e0 + k] : (I)-1;
+    for (int k = 0; k < V; ++k) u.ix[k] = col + k < cols ? idx[e0 + k] : (I)-1;
   }
 #pragma unroll
   for (int t = 0; t < kMaxTables; ++t) {
@@ -98,7 +122,7 @@ gather_tables_kernel(const I* __restrict__ idx, Tables tb, long long total,
       r[k] = (i >= 0 && i < t_len) ? __ldg(src + i) : fill;
     }
     uint32_t* dst = tb.dst[t];
-    if (full) {
+    if (full && vec) {
       if constexpr (V == 4) {
         reinterpret_cast<uint4*>(dst)[v] = make_uint4(r[0], r[1], r[2], r[3]);
       } else {
@@ -107,27 +131,15 @@ gather_tables_kernel(const I* __restrict__ idx, Tables tb, long long total,
     } else {
 #pragma unroll
       for (int k = 0; k < V; ++k) {
-        if (e0 + k < total) dst[e0 + k] = r[k];
+        if (col + k < cols) dst[e0 + k] = r[k];
       }
     }
   }
 }
 
-}  // namespace
-
-// idx (total,) int32 (index_bytes 4) or int64 (8), 16-byte aligned; tables
-// t0..t3 (t_len,) 4-byte words, outputs o0..o3 (total,) 16-byte aligned,
-// fills f0..f3 as raw words; the first n_tables (1..4) are used
-extern "C" int gather_tables_launch(const void* idx, const void* t0,
-                                    const void* t1, const void* t2,
-                                    const void* t3, void* o0, void* o1,
-                                    void* o2, void* o3, uint32_t f0,
-                                    uint32_t f1, uint32_t f2, uint32_t f3,
-                                    long long total, long long t_len,
-                                    int n_tables, int index_bytes,
-                                    void* stream) {
-  if (total <= 0) return 0;
-  if (n_tables < 1 || n_tables > kMaxTables) return (int)cudaErrorInvalidValue;
+Tables make_tables(const void* t0, const void* t1, const void* t2, const void* t3,
+                   void* o0, void* o1, void* o2, void* o3, uint32_t f0,
+                   uint32_t f1, uint32_t f2, uint32_t f3) {
   Tables tb;
   tb.src[0] = static_cast<const uint32_t*>(t0);
   tb.src[1] = static_cast<const uint32_t*>(t1);
@@ -141,19 +153,50 @@ extern "C" int gather_tables_launch(const void* idx, const void* t0,
   tb.fill[1] = f1;
   tb.fill[2] = f2;
   tb.fill[3] = f3;
+  return tb;
+}
+
+bool aligned16(const Tables& tb, int n_tables) {
+  for (int t = 0; t < n_tables; ++t) {
+    if (reinterpret_cast<uintptr_t>(tb.dst[t]) % 16) return false;
+  }
+  return true;
+}
+
+}  // namespace
+
+// idx (rows, cols) int32 (index_bytes 4) or int64 (8), 16-byte aligned,
+// total = rows * cols, cols % (16 / index_bytes) == 0 where rows > 1 (pass
+// rows 1, cols total for the chunks in order); tables t0..t3 (t_len,)
+// 4-byte words, outputs o0..o3 (total,) 4-byte words (16-byte vector
+// stores where all are 16-byte aligned), fills f0..f3 as raw words; the
+// first n_tables (1..4) are used.  One pass.
+extern "C" int gather_tables_launch(const void* idx, const void* t0,
+                                    const void* t1, const void* t2,
+                                    const void* t3, void* o0, void* o1,
+                                    void* o2, void* o3, uint32_t f0,
+                                    uint32_t f1, uint32_t f2, uint32_t f3,
+                                    long long total, long long t_len,
+                                    int n_tables, int index_bytes,
+                                    long long rows, long long cols, void* stream) {
+  if (total <= 0) return 0;
+  const long long per_thread = 16 / (index_bytes == 4 ? 4 : 8);
+  if (n_tables < 1 || n_tables > kMaxTables || (index_bytes != 4 && index_bytes != 8) ||
+      rows < 1 || rows * cols != total || (rows > 1 && cols % per_thread)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Tables tb = make_tables(t0, t1, t2, t3, o0, o1, o2, o3, f0, f1, f2, f3);
+  const bool vec = aligned16(tb, n_tables);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const long long per_thread = 16 / index_bytes;
-  const long long nvec = (total + per_thread - 1) / per_thread;
-  const long long nblk = (nvec + kThreads - 1) / kThreads;
+  const long long chunk = kThreads * per_thread;
+  const long long nblk = rows * ((cols + chunk - 1) / chunk);
   if (nblk > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   if (index_bytes == 4) {
     gather_tables_kernel<int32_t><<<(unsigned)nblk, kThreads, 0, st>>>(
-        static_cast<const int32_t*>(idx), tb, total, t_len, n_tables);
-  } else if (index_bytes == 8) {
-    gather_tables_kernel<long long><<<(unsigned)nblk, kThreads, 0, st>>>(
-        static_cast<const long long*>(idx), tb, total, t_len, n_tables);
+        static_cast<const int32_t*>(idx), tb, rows, cols, t_len, n_tables, vec);
   } else {
-    return (int)cudaErrorInvalidValue;
+    gather_tables_kernel<long long><<<(unsigned)nblk, kThreads, 0, st>>>(
+        static_cast<const long long*>(idx), tb, rows, cols, t_len, n_tables, vec);
   }
   return (int)cudaGetLastError();
 }

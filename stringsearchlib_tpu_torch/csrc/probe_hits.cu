@@ -34,6 +34,12 @@
 // decoded variants, 5 KB of int16 or 10 KB of int32 raw accumulators).  The
 // epilogue is per-term integer work (about 40 operations a term for the
 // decode) where K1 stores its SWAR bytes as they come; a first, simple form.
+// The int32 epilogue (P8 i32, P9 rawi32), whose 10 KB per (query, tile)
+// make it the most store-bound, emits one slot at a time through shared
+// memory (store_raw32_staged): 16 words live where store_slots holds all
+// five slots' 80, and 512 contiguous bytes per store instruction where
+// store_slots' 16-byte vectors lie 64 bytes apart (half of each sector per
+// instruction).
 //
 // P6 (`tile_q2`, two query blocks resident and one table read): one block
 // serves 32 queries, two of K1's 16-query groups, so a row that several of
@@ -146,6 +152,45 @@ __device__ __forceinline__ void store_slots(const uint32_t (&acc)[8][4],
   }
 }
 
+// kRaw32's store path: one slot at a time (16 words live), staged through
+// the warp's 2 KB of shared memory and written back as 512 contiguous bytes
+// per store instruction, four per slot, so every 32-byte sector is written
+// whole by one instruction.  Chunk q (16 bytes) of the slot sits at
+// q ^ ((q >> 3) & 3): the lanes' 16-byte writes (chunks 4 lane + c) and
+// reads (chunks 32 c + lane) then each meet the 8 distinct bank groups
+// within a quarter warp, free of bank conflicts.
+__device__ __forceinline__ void store_raw32_staged(const uint32_t (&acc)[8][4],
+                                                   uint8_t* out, int lane,
+                                                   uint4* stage) {
+#pragma unroll
+  for (int s = 0; s < 5; ++s) {
+    uint32_t o[16];
+#pragma unroll
+    for (int t = 0; t < 16; ++t) {
+      int h[8];
+#pragma unroll
+      for (int p = 0; p < 8; ++p) h[p] = (acc[p][t >> 2] >> (8 * (t & 3))) & 0xff;
+      int v[5];
+      term_values<kRaw32>(h, v);
+      o[t] = (uint32_t)v[s];
+    }
+    __syncwarp();  // every lane has read the previous slot from the stage
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int q = lane * 4 + c;
+      stage[q ^ ((q >> 3) & 3)] = make_uint4(o[4 * c], o[4 * c + 1], o[4 * c + 2],
+                                             o[4 * c + 3]);
+    }
+    __syncwarp();
+    uint4* dst = reinterpret_cast<uint4*>(out + (size_t)s * kBlkb * 4);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int q = c * 32 + lane;
+      __stcs(dst + q, stage[q ^ ((q >> 3) & 3)]);
+    }
+  }
+}
+
 // one block per (layout tile, group of QPB queries), the group fastest;
 // one warp per query at a time, as K1
 template <int E, int QPB>
@@ -162,14 +207,18 @@ probe_hits_kernel(const uint8_t* __restrict__ planes,
   const int lane = threadIdx.x & 31;
   const uint8_t* tile_base = planes + layout.tile(tile) + (size_t)lane * 16;
   const int q_end = min(n_queries, (group + 1) * QPB);
+  __shared__ uint4 stage[E == kRaw32 ? kWarps * 128 : 1];  // kRaw32: 2 KB a warp
   for (int b = group * QPB + warp; b < q_end; b += kWarps) {
     uint32_t acc[8][4];
     count_query(tile_base, layout, rows + (size_t)b * vmax,
                 mults + (size_t)b * vmax, vmax, lane, acc);
-    store_slots<E>(acc,
-                   out + ((size_t)b * out_q_stride + (size_t)tile * out_t_stride) *
-                             Epi<E>::kBytes,
-                   lane);
+    uint8_t* o = out + ((size_t)b * out_q_stride + (size_t)tile * out_t_stride) *
+                           Epi<E>::kBytes;
+    if constexpr (E == kRaw32) {
+      store_raw32_staged(acc, o, lane, stage + warp * 128);
+    } else {
+      store_slots<E>(acc, o, lane);
+    }
   }
 }
 

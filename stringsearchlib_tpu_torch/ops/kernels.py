@@ -55,8 +55,8 @@ ARGTYPES = {
     },
     "gather_tables": {
         # idx, 4 tables, 4 outputs, 4 fill bit patterns, total, T, n_tables,
-        # index bytes, stream
-        "gather_tables_launch": [_P] * 9 + [_U32] * 4 + [_LL, _LL, _I, _I, _P],
+        # index bytes, rows, cols, stream
+        "gather_tables_launch": [_P] * 9 + [_U32] * 4 + [_LL, _LL, _I, _I, _LL, _LL, _P],
         # gram_ptr, gram_terms, slots, out, G, P, B, Qmax, s_cap, fill bit
         # pattern, stream
         "expand_postings_launch": [_P] * 4 + [_LL, _LL, _I, _I, _LL, _U32, _P],

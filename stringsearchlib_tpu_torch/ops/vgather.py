@@ -25,7 +25,8 @@ between the two: a CUDA tensor launches the kernel or raises.
 
 from __future__ import annotations
 
-import numpy as np
+import struct
+
 import torch
 
 from .kernels import lib as _lib
@@ -39,7 +40,10 @@ K6_REF_CALLS = 0
 EXPAND_LAUNCHES = 0
 
 _MAX_TABLES = 4
-_DTYPES = {torch.int32: np.int32, torch.float32: np.float32}
+_DTYPES = (torch.int32, torch.float32)
+_CHUNK_BYTES = 256 * 16  # index bytes a block of its one pass takes
+_ONE_PASS = None  # gather_tables_launch, bound at its first launch
+_F32, _U32 = struct.Struct("<f"), struct.Struct("<I")
 
 
 def gather_tables_ref(idx, tables, fills):
@@ -55,57 +59,138 @@ def gather_tables_ref(idx, tables, fills):
 
 
 def _fill_word(fill, dtype) -> int:
-    """The fill value as the raw 32-bit word the kernel stores."""
-    return int(np.asarray(fill, dtype=_DTYPES[dtype]).view(np.uint32))
+    """The fill value as the raw 32-bit word the kernel stores: float32
+    rounded to nearest (past its range, an infinity), int32 truncated
+    toward zero as numpy casts it; an int32 fill outside its range raises
+    OverflowError."""
+    if dtype == torch.float32:
+        f = float(fill)
+        try:
+            return _U32.unpack(_F32.pack(f))[0]
+        except OverflowError:
+            return 0x7F800000 if f > 0 else 0xFF800000
+    v = int(fill)
+    if not -(1 << 31) <= v < (1 << 31):
+        raise OverflowError(f"fill {fill} is out of bounds for int32")
+    return v & 0xFFFFFFFF
 
 
-def gather_tables(idx, tables, fills):
-    """Gather every (T,) table of ``tables`` at the (B, C) indices ``idx``,
-    ``fills[k]`` outside [0, T).  Returns a list of (B, C) tensors.
+def _grid_rows(shape, index_bytes: int):
+    """(rows, cols) of the one pass's block order for an index matrix of
+    ``shape``: a block per chunk of one row, the row fastest, so the blocks
+    in flight read the same narrow slice of the tables where the rows are
+    sorted; (1, total), the chunks in order, where a row is no whole number
+    of 16-byte index vectors or fills less than a block's chunk (256 of
+    them), which would leave most of each block idle."""
+    total = 1
+    for d in shape:
+        total *= d
+    row_bytes = (shape[-1] if len(shape) else 1) * index_bytes
+    if row_bytes % 16 == 0 and row_bytes >= _CHUNK_BYTES:
+        return total // shape[-1], shape[-1]
+    return 1, total
 
-    CUDA tensors launch the K6 kernel; CPU tensors run the plain version."""
-    global K6_LAUNCHES, K6_REF_CALLS
-    tables, fills = list(tables), list(fills)
-    if not 1 <= len(tables) <= _MAX_TABLES or len(fills) != len(tables):
+
+def _outputs(idx, tables):
+    """One (B, C) output per table, each of its table's dtype: views of one
+    (n_tables, round_up(B * C, 4)) allocation (the tensor itself for one
+    table), each table's row padded to 16 bytes so every view is 16-byte
+    aligned and the kernel stores vectors whatever B * C.  The views share
+    their storage: any one of them keeps all of it alive."""
+    if len(tables) == 1:
+        return [torch.empty_like(idx, dtype=tables[0].dtype)]
+    total = idx.numel()
+    buf = idx.new_empty((len(tables), -(-total // 4) * 4), dtype=tables[0].dtype)
+    return [(o if o.dtype == t.dtype else o.view(t.dtype))[:total].view(idx.shape)
+            for o, t in zip(buf.unbind(0), tables)]
+
+
+def _check(idx, tables, fills) -> bool:
+    """The gather's operand checks; True for CUDA operands (raises on
+    operands the kernel does not take)."""
+    n = len(tables)
+    if not 1 <= n <= _MAX_TABLES or len(fills) != n:
         raise ValueError(f"1 to {_MAX_TABLES} tables with one fill each, got "
-                         f"{len(tables)} tables and {len(fills)} fills")
-    if idx.dtype not in (torch.int32, torch.int64):
+                         f"{n} tables and {len(fills)} fills")
+    if idx.dtype is not torch.int32 and idx.dtype is not torch.int64:
         raise TypeError(f"idx must be int32 or int64, got {idx.dtype}")
+    dev = idx.device
     t_len = tables[0].shape[0]
     for t in tables:
         if t.ndim != 1 or t.shape[0] != t_len:
             raise ValueError(f"tables must be 1-D of one length, got {tuple(t.shape)}")
         if t.dtype not in _DTYPES:
             raise TypeError(f"tables must be int32 or float32, got {t.dtype}")
-        if t.device != idx.device:
-            raise ValueError(f"idx on {idx.device}, a table on {t.device}")
-    if idx.device.type == "cpu":
-        K6_REF_CALLS += 1
-        return gather_tables_ref(idx, tables, fills)
-    if idx.device.type != "cuda":
-        raise ValueError(f"unsupported device {idx.device}")
+        if t.device != dev:
+            raise ValueError(f"idx on {dev}, a table on {t.device}")
+    if not idx.is_cuda:
+        if dev.type == "cpu":
+            return False
+        raise ValueError(f"unsupported device {dev}")
     if not idx.is_contiguous() or idx.data_ptr() % 16:
         raise ValueError("idx must be contiguous and 16-byte aligned")
-    if any(not t.is_contiguous() for t in tables):
-        raise ValueError("tables must be contiguous")
-    outs = [torch.empty(idx.shape, dtype=t.dtype, device=idx.device) for t in tables]
+    for t in tables:
+        if not t.is_contiguous():
+            raise ValueError("tables must be contiguous")
+    return True
+
+
+def gather_tables(idx, tables, fills):
+    """Gather every (T,) table of ``tables`` at the (B, C) indices ``idx``,
+    ``fills[k]`` outside [0, T).  Returns a list of (B, C) tensors (on the
+    card, views of one allocation).
+
+    CUDA tensors launch the K6 kernel's one pass (blocks over the rows'
+    chunks, the row fastest: ``_grid_rows``); CPU tensors run the plain
+    version."""
+    global K6_LAUNCHES, K6_REF_CALLS
+    if not isinstance(tables, (list, tuple)):
+        tables = list(tables)
+    if not isinstance(fills, (list, tuple)):
+        fills = list(fills)
+    if not _check(idx, tables, fills):
+        K6_REF_CALLS += 1
+        return gather_tables_ref(idx, tables, fills)
+    n = len(tables)
+    t0 = tables[0]
     total = idx.numel()
-    if total == 0:
-        return outs
-    pad = _MAX_TABLES - len(tables)
-    srcs = [t.data_ptr() for t in tables] + [0] * pad
-    dsts = [o.data_ptr() for o in outs] + [0] * pad
-    words = [_fill_word(f, t.dtype) for f, t in zip(fills, tables)] + [0] * pad
-    with torch.cuda.device(idx.device):
-        stream = torch.cuda.current_stream(idx.device).cuda_stream
-        err = _lib("gather_tables").gather_tables_launch(
-            idx.data_ptr(), *srcs, *dsts, *words, total, t_len, len(tables),
-            idx.element_size(), stream,
-        )
+    if n == 1:  # the common case, without building lists
+        word = _fill_word(fills[0], t0.dtype)
+        out = torch.empty_like(idx, dtype=t0.dtype)
+        outs = [out]
+        if total == 0:
+            return outs
+        args = (idx.data_ptr(), t0.data_ptr(), 0, 0, 0, out.data_ptr(), 0, 0, 0,
+                word, 0, 0, 0, total, t0.shape[0], 1, idx.element_size())
+    else:
+        words = [_fill_word(f, t.dtype) for f, t in zip(fills, tables)]
+        outs = _outputs(idx, tables)
+        if total == 0:
+            return outs
+        pad = (0,) * (_MAX_TABLES - n)
+        args = ((idx.data_ptr(), *[t.data_ptr() for t in tables], *pad,
+                 *[o.data_ptr() for o in outs], *pad, *words, *pad)
+                + (total, t0.shape[0], n, idx.element_size()))
+    fn = _ONE_PASS or _bind()
+    args += _grid_rows(idx.shape, idx.element_size())
+    # the raw stream handle: torch.cuda.current_stream() builds a Stream
+    # object per call, a few microseconds of host time the launch waits for
+    dev = idx.get_device()
+    if dev == torch._C._cuda_getDevice():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"gather_tables kernel launch failed: cuda error {err}")
     K6_LAUNCHES += 1
     return outs
+
+
+def _bind():
+    global _ONE_PASS
+    _ONE_PASS = _lib("gather_tables").gather_tables_launch
+    return _ONE_PASS
 
 
 def posting_index(

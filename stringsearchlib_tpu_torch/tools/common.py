@@ -2,10 +2,12 @@
 inputs, and one probe case checked against its plain version and timed.
 
 Times come from CUDA events (``cuda_ms``: per call, the host's launch work
-included) and from calls queued behind a spin kernel (``queued_ms``: the
-device's work back to back).  Bounds divide the bytes a function must move
-by the H100's published 3.35 TB/s and its operations by the published peak
-for their type (NVIDIA H100 SXM data sheet, dense, at 700 W).
+included), from calls queued behind a spin kernel (``queued_ms``: the
+device's work back to back) and from such calls each after an L2 flush
+(``flushed_ms``: each call from a cold L2).  Bounds divide the bytes a
+function must move by the H100's published 3.35 TB/s and its operations by
+the published peak for their type (NVIDIA H100 SXM data sheet, dense, at
+700 W).
 """
 
 from __future__ import annotations
@@ -87,6 +89,33 @@ def queued_ms(fn, reps: int = 20) -> Optional[float]:
     late = start.query()  # the spin had ended: host gaps would count
     torch.cuda.synchronize()
     return None if late else start.elapsed_time(end) / reps
+
+
+def flushed_ms(fn, reps: int = 10) -> Optional[float]:
+    """Device milliseconds per call with the L2 flushed before each call:
+    ``reps`` calls enqueued behind a spin kernel, each after a write of
+    twice the L2's bytes (which evicts what the last call left there),
+    each call timed alone with CUDA events and the times averaged, so no
+    host time and no flush counts.  None (not measured) when the spin ended
+    before the host had enqueued every call."""
+    l2 = torch.cuda.get_device_properties(torch.cuda.current_device()).L2_cache_size
+    flush = torch.empty(2 * l2, dtype=torch.int8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    torch.cuda._sleep(SPIN_CYCLES)
+    for start, end in events:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    late = events[0][0].query()
+    torch.cuda.synchronize()
+    del flush
+    if late:
+        return None
+    return sum(s.elapsed_time(e) for s, e in events) / reps
 
 
 def timed_once(fn):

@@ -394,6 +394,88 @@ def test_cuda_gather_tables_matches_plain_version(cuda, idx_dtype, n_tables):
             assert g.dtype == wnt.dtype and torch.equal(g.cpu(), wnt)
 
 
+def _bits32(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n_tables", [1, 4])
+def test_cuda_gather_tables_passes_match_plain_version(cuda, idx_dtype, n_tables):
+    """The one pass on T = 10,000: indices -1 and >= T, sorted and unsorted
+    rows, ragged tails (B * C not a multiple of 4, each table's output
+    still 16-byte aligned), rows of 1.5 and 3 chunks (the row block order),
+    fills NaN, -0.0 and int32 min; every output bit equal to the plain
+    version's, and the outputs views of one allocation."""
+    from stringsearchlib_tpu_torch.ops import vgather as k6
+
+    rng = np.random.default_rng(n_tables * 10 + idx_dtype.itemsize)
+    t_len = 10_000
+    tables = [torch.from_numpy(rng.integers(-2**31, 2**31 - 1, t_len, dtype=np.int64)
+                               .astype(np.int32))]
+    tables += [torch.from_numpy(rng.standard_normal(t_len).astype(np.float32))
+               for _ in range(n_tables - 1)]
+    fills = [-(1 << 31), float("nan"), -0.0, 7.5][:n_tables]
+    for shape in ((7, 4099), (3, 1), (64, 256), (5, 1536)):
+        idx = rng.integers(-50, t_len + 50, size=shape)
+        idx[0] = np.sort(idx[0])
+        idx[-1, -3:] = [-1, t_len, t_len - 1][-shape[1]:]
+        idx = torch.from_numpy(idx).to(idx_dtype)
+        tc = [t.to(cuda) for t in tables]
+        launches = k6.K6_LAUNCHES
+        got = k6.gather_tables(idx.to(cuda), tc, fills)
+        torch.cuda.synchronize()
+        assert k6.K6_LAUNCHES == launches + 1
+        want = k6.gather_tables_ref(idx, tables, fills)
+        base = got[0].untyped_storage().data_ptr()
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert g.untyped_storage().data_ptr() == base and g.data_ptr() % 16 == 0
+            assert torch.equal(_bits32(g.cpu()), _bits32(w))
+
+
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("order", ["sorted_rows", "unsorted"])
+def test_cuda_gather_tables_over_the_l2(cuda, idx_dtype, order):
+    """Two tables of 8M words (64 MB, over an H100's L2) at 4M indices: the
+    one pass in its row order and in the chunks' order, each equal to the
+    plain version."""
+    from stringsearchlib_tpu_torch.ops import vgather as k6
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    t_len = 8 << 20
+    tables = [torch.randint(-2**31, 2**31 - 1, (t_len,), generator=gen, device=cuda,
+                            dtype=torch.int32),
+              torch.randn(t_len, generator=gen, device=cuda)]
+    idx = torch.randint(-100, t_len + 100, (64, 1 << 16), generator=gen, device=cuda)
+    if order == "sorted_rows":
+        idx = idx.sort(dim=1).values
+    idx = idx.to(idx_dtype).contiguous()
+    fills = [-3, float("nan")]
+    assert k6._grid_rows(idx.shape, idx.element_size()) == (64, 1 << 16)
+    want = k6.gather_tables_ref(idx, tables, fills)
+    for got in (k6.gather_tables(idx, tables, fills),
+                k6.gather_tables(idx.reshape(1, -1), tables, fills)):
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(_bits32(g).view(-1), _bits32(w).view(-1))
+
+
+def test_cuda_gather_tables_empty_table_and_no_indices(cuda):
+    from stringsearchlib_tpu_torch.ops import vgather as k6
+
+    idx = torch.tensor([[0, -1, 5], [2, 1, 0]], dtype=torch.int64, device=cuda)
+    tabs = [torch.zeros(0, dtype=torch.float32, device=cuda),
+            torch.zeros(0, dtype=torch.int32, device=cuda)]
+    got = k6.gather_tables(idx, tabs, [float("nan"), -(1 << 31)])
+    torch.cuda.synchronize()
+    assert torch.equal(_bits32(got[0].cpu()),
+                       torch.full((2, 3), 0x7FC00000, dtype=torch.int32))
+    assert torch.equal(got[1].cpu(), torch.full((2, 3), -(1 << 31), dtype=torch.int32))
+    launches = k6.K6_LAUNCHES
+    out = k6.gather_tables(idx[:0], tabs, [0.0, 0])
+    assert [o.shape for o in out] == [(0, 3), (0, 3)] and k6.K6_LAUNCHES == launches
+
+
 def _expand_case(rng, b, qmax, s_cap, kind):
     """A random CSR and (b, qmax) slots of one kind: ``mixed`` (absent slots,
     zero-length runs, repeated grams), ``long_runs`` (runs of up to 40k
@@ -605,6 +687,28 @@ def test_cuda_raw_and_bisect_probes_match_plain_version(cuda, variant, layout, t
     torch.cuda.synchronize()
     assert probes.LAUNCHES[probe] == before + 1
     assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b", [13, 33, 256])
+@pytest.mark.parametrize("layout", ["row", "tile"])
+def test_cuda_int32_store_paths_match_plain_version(cuda, b, layout):
+    """P8 i32 / P9 rawi32's staged store at ragged and full query groups,
+    against the plain version, bit for bit."""
+    from stringsearchlib_tpu_torch.ops import probes
+
+    rng = np.random.default_rng(b + len(layout))
+    t = _probe_table(rng, 2816, 3, "random")
+    t[:4] = -1
+    t[4:8] = -128
+    t = t.to(cuda)
+    if layout == "tile":
+        t = pbm.to_tile_major(t)
+    q = _qcnt(rng, b, 2816, 24, 127).to(cuda)
+    want = probes.raw_hits_ref(q, t, i16=False)
+    for got in (probes.raw_hits(q, t, i16=False),
+                probes.bisect_run(q, t, variant="rawi32")):
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and torch.equal(got, want)
 
 
 def test_cuda_probe_contracts(cuda):

@@ -541,6 +541,64 @@ def test_bisect_matches_jax(variant, total, kind):
     _eq(probes.bisect_run(torch.from_numpy(q), torch.from_numpy(t), variant=variant), want)
 
 
+@pytest.mark.parametrize("probe", ["P8_i32", "P9_rawi32"])
+@pytest.mark.parametrize("b", [13, 33])
+@pytest.mark.parametrize("total,kind", [(31, "random"), (127, "random"), (127, "ones")])
+def test_int32_raw_ragged_queries_match_jax(probe, b, total, kind):
+    """P8 i32 and P9 rawi32 (one int32 epilogue on the card) at query counts
+    that are no multiple of 16 (the kernel's query groups), in both table
+    layouts, against the reference's kernels in interpret mode."""
+    rng = np.random.default_rng(b + total + len(kind) + len(probe))
+    gp = 128
+    t = _table(rng, gp, 3, kind)
+    q = _counts(rng, b, gp, total)
+    if probe == "P8_i32":
+        want = jax_raw_hits(jnp.asarray(q), jnp.asarray(t), i16=False)
+    else:
+        want = jax_bisect_run(jnp.asarray(q), jnp.asarray(t), variant="rawi32")
+    qt = torch.from_numpy(q)
+    for tt in (torch.from_numpy(t), torch.from_numpy(_to_tile_major(t))):
+        if probe == "P8_i32":
+            _eq(probes.raw_hits(qt, tt, i16=False), want)
+        else:
+            _eq(probes.bisect_run(qt, tt, variant="rawi32"), want)
+
+
+def _swizzle(q):
+    """csrc/probe_hits.cu store_raw32_staged: the shared-memory place of
+    16-byte chunk q of a warp's 2 KB slot."""
+    return q ^ ((q >> 3) & 3)
+
+
+def test_staged_store_model_matches_strided_layout():
+    """numpy model of the int32 epilogue's staged store: each lane writes its
+    16 words of a slot as chunks 4 lane + c at their swizzled places, then
+    store c of the warp reads chunks 32 c + lane back and writes them to
+    consecutive 16-byte places.  The slot comes out in term order, as the
+    other epilogues' ``store_slots`` lays it out; every store writes 512
+    contiguous bytes; the swizzle is a permutation of the 128 chunks, and
+    each quarter warp's writes and reads meet the 8 bank groups once each."""
+    lanes = np.arange(32)
+    words = (16 * lanes[:, None] + np.arange(16)[None]).astype(np.int64)  # term t of lane l
+    assert sorted(_swizzle(q) for q in range(128)) == list(range(128))
+    stage = np.full((128, 4), -1, np.int64)
+    for c in range(4):
+        q = lanes * 4 + c
+        stage[_swizzle(q)] = words[:, 4 * c : 4 * c + 4]
+        for quarter in range(4):
+            group = _swizzle(q[8 * quarter : 8 * quarter + 8]) % 8
+            assert sorted(group) == list(range(8))
+    out = np.full((128, 4), -1, np.int64)
+    for c in range(4):
+        q = c * 32 + lanes
+        for quarter in range(4):
+            group = _swizzle(q[8 * quarter : 8 * quarter + 8]) % 8
+            assert sorted(group) == list(range(8))
+        assert np.array_equal(q, np.arange(32 * c, 32 * c + 32))  # 512 contiguous bytes
+        out[q] = stage[_swizzle(q)]
+    np.testing.assert_array_equal(out.reshape(-1), np.arange(512))
+
+
 # -- the CUDA kernels' epilogue arithmetic ------------------------------------
 
 

@@ -82,6 +82,143 @@ def test_wrapper_contracts():
     assert empty.tolist() == [[9, 9]]
 
 
+_FILLS = {  # (float32 fill, int32 fill)
+    "nan_and_int32_min": (float("nan"), -(1 << 31)),
+    "negative_zero_and_int32_max": (-0.0, (1 << 31) - 1),
+    "inf_and_zero": (float("inf"), 0),
+}
+
+
+@pytest.mark.parametrize("fills", list(_FILLS))
+@pytest.mark.parametrize("idx_dtype", [np.int32, np.int64])
+def test_fills_and_index_types_match_vgather(interpret, fills, idx_dtype):
+    """float32 NaN, -0.0 and inf fills, int32 min / max fills, int32 and
+    int64 indices (the TPU kernel takes int32), a ragged (3, 131) shape:
+    every output bit against the TPU kernel in interpret mode."""
+    rng = np.random.default_rng(len(fills) + np.dtype(idx_dtype).itemsize)
+    t_total = 3000
+    tab_f = rng.standard_normal(t_total).astype(np.float32)
+    tab_i = rng.integers(-2**31, 2**31 - 1, t_total, dtype=np.int64).astype(np.int32)
+    idx = rng.integers(-9, t_total + 9, (3, 131))
+    f_fill, i_fill = _FILLS[fills]
+    want = jvg.gather_tables(jnp.asarray(idx.astype(np.int32)),
+                             [jnp.asarray(tab_f), jnp.asarray(tab_i)],
+                             (f_fill, i_fill), tile=1024)
+    got = pvg.gather_tables(torch.from_numpy(idx.astype(idx_dtype)),
+                            [torch.from_numpy(tab_f), torch.from_numpy(tab_i)],
+                            [f_fill, i_fill])
+    for g, w in zip(got, want):
+        assert g.shape == idx.shape
+        np.testing.assert_array_equal(_bits(g.numpy()), _bits(w))
+
+
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+def test_empty_table_gives_the_fills(idx_dtype):
+    """T = 0: every element is out of range, so every output is its fill,
+    bit for bit (NaN and -0.0 keep their patterns)."""
+    idx = torch.tensor([[0, -1, 5], [2, 1, 0]], dtype=idx_dtype)
+    fills = [float("nan"), -0.0, -(1 << 31)]
+    tabs = [torch.zeros(0, dtype=torch.float32)] * 2 + [torch.zeros(0, dtype=torch.int32)]
+    got = pvg.gather_tables(idx, tabs, fills)
+    for g, f, t in zip(got, fills, tabs):
+        want = np.full(idx.shape, f, np.float32 if t.dtype == torch.float32 else np.int32)
+        assert g.dtype == t.dtype
+        np.testing.assert_array_equal(_bits(g.numpy()), _bits(want))
+
+
+@pytest.mark.parametrize("fill", [float("nan"), -0.0, float("inf"), -1.5, 1e39, -1e39,
+                                  3.4028235e38, 1e-46, 7])
+def test_fill_word_matches_numpy_float32(fill):
+    """The wrapper's fill word without numpy: the float32 cast's bits,
+    rounded to nearest, infinite past float32's range."""
+    with np.errstate(over="ignore"):
+        want = int(np.asarray(fill, dtype=np.float32).view(np.uint32))
+    assert pvg._fill_word(fill, torch.float32) == want
+
+
+@pytest.mark.parametrize("fill", [-(1 << 31), (1 << 31) - 1, 0, -1, 2.9, -2.9, True,
+                                  np.int64(-5)])
+def test_fill_word_matches_numpy_int32(fill):
+    assert pvg._fill_word(fill, torch.int32) == int(
+        np.asarray(fill).astype(np.int32).view(np.uint32))
+
+
+@pytest.mark.parametrize("fill", [1 << 31, -(1 << 31) - 1])
+def test_fill_word_rejects_int32_overflow(fill):
+    with pytest.raises(OverflowError):
+        pvg._fill_word(fill, torch.int32)
+
+
+@pytest.mark.parametrize("shape", [(4, 16), (3, 131), (1, 1)])
+def test_outputs_are_views_of_one_allocation(shape):
+    """The wrapper's outputs on the card are views of one allocation, one
+    per table in its dtype, each table's B * C words padded to a multiple of
+    4, so every view starts 16 bytes aligned (the kernel then stores 16-byte
+    vectors whatever B * C)."""
+    idx = torch.zeros(shape, dtype=torch.int32)
+    tabs = [torch.zeros(5, dtype=torch.int32), torch.zeros(5, dtype=torch.float32),
+            torch.zeros(5, dtype=torch.float32), torch.zeros(5, dtype=torch.int32)]
+    for n in (1, 2, 4):
+        outs = pvg._outputs(idx, tabs[:n])
+        assert [o.dtype for o in outs] == [t.dtype for t in tabs[:n]]
+        assert all(o.shape == shape and o.is_contiguous() for o in outs)
+        base = outs[0].untyped_storage().data_ptr()
+        assert all(o.untyped_storage().data_ptr() == base for o in outs)
+        nbytes = 4 * outs[0].numel() if n == 1 else 16 * -(-outs[0].numel() // 4)
+        assert [o.data_ptr() - outs[0].data_ptr() for o in outs] == [
+            k * nbytes for k in range(n)]
+        assert nbytes % 16 == 0 or n == 1
+        assert outs[0].untyped_storage().nbytes() == n * nbytes
+
+
+@pytest.mark.parametrize("shape,index_bytes,want", [
+    ((256, 1024), 8, (256, 1024)), ((256, 65536), 8, (256, 65536)),
+    ((64, 65536), 4, (64, 65536)), ((256, 1024), 4, (256, 1024)),
+    ((256, 512), 8, (256, 512)), ((256, 511), 8, (1, 256 * 511)),
+    ((256, 1020), 4, (1, 256 * 1020)), ((7, 4099), 4, (1, 7 * 4099)),
+    ((3, 1), 8, (1, 3)), ((5, 6), 8, (1, 30)), ((5, 8), 4, (1, 40)),
+    ((1 << 20, 4), 4, (1, 1 << 22)), ((2, 3, 2048), 4, (6, 2048)), ((4,), 8, (1, 4)),
+    ((0, 1024), 4, (0, 1024)), ((16, 0), 4, (1, 0)),
+])
+def test_grid_rows_matches_numpy_model(shape, index_bytes, want):
+    """The one pass's block order: the rows of the index matrix (the last
+    axis a row) where a row is a whole number of 16-byte index vectors and
+    at least a block's 256 of them, else one row of every index."""
+    n = int(np.prod(shape))
+    row_bytes = shape[-1] * index_bytes
+    model = (n // shape[-1], shape[-1]) if row_bytes % 16 == 0 and row_bytes >= 4096 else (1, n)
+    assert pvg._grid_rows(shape, index_bytes) == model == want
+
+
+@pytest.mark.parametrize("entry", ["gather_tables"])
+def test_gather_entries_reject_bad_operands(entry):
+    """Operands the kernel does not take raise before any plain call."""
+    fn = getattr(pvg, entry)
+    tab = torch.arange(10, dtype=torch.int32)
+    idx = torch.zeros((2, 2), dtype=torch.int32)
+    for args, err in (((idx.float(), [tab], [0]), TypeError),
+                      ((idx, [tab.long()], [0]), TypeError),
+                      ((idx, [tab] * 5, [0] * 5), ValueError),
+                      ((idx, [tab, tab], [0]), ValueError),
+                      ((idx, [tab, tab[:5]], [0, 0]), ValueError),
+                      ((idx, [tab[None]], [0]), ValueError),
+                      ((idx.to("meta"), [tab], [0]), ValueError)):
+        calls = pvg.K6_REF_CALLS
+        with pytest.raises(err):
+            fn(*args)
+        assert pvg.K6_REF_CALLS == calls
+
+
+def test_gather_takes_iterables_of_tables_and_fills():
+    """Tables and fills may come as any iterable, generators included."""
+    idx = torch.tensor([[0, 3], [-1, 10]], dtype=torch.int64)
+    tabs = [torch.arange(10, dtype=torch.int32), torch.arange(10, dtype=torch.float32)]
+    got = pvg.gather_tables(idx, (t for t in tabs), (f for f in (-7, 0.5)))
+    want = pvg.gather_tables_ref(idx, tabs, [-7, 0.5])
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
 def test_gather_hits_matches_jax():
     """The dense path's postings expansion (K6 with index -1 and fill n_long
     on invalid lanes, then a scatter-add) against the JAX package's, on a
