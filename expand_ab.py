@@ -136,7 +136,6 @@ def main() -> None:
     sys.path.insert(0, _ROOT)
     import numpy as np
 
-    import bench
     import chip_smoke as cs
     import hits_ab
     from stringsearchlib_tpu_torch.config import IndexConfig
@@ -145,6 +144,7 @@ def main() -> None:
     from stringsearchlib_tpu_torch.ops import vgather as k6
     from stringsearchlib_tpu_torch.search import candidates
     from stringsearchlib_tpu_torch.search.engine import SearchEngine
+    from stringsearchlib_tpu_torch.tools import bench
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -255,7 +255,6 @@ def main() -> None:
     sys.path.insert(0, _ROOT)
     import numpy as np
 
-    import bench
     import chip_smoke as cs
     from stringsearchlib_tpu_torch.config import IndexConfig
     from stringsearchlib_tpu_torch.index import build as buildmod
@@ -263,6 +262,7 @@ def main() -> None:
     from stringsearchlib_tpu_torch.search.candidates import query_counts
     from stringsearchlib_tpu_torch.search.engine import SearchEngine
     from stringsearchlib_tpu_torch.search.sketch import bucket_of
+    from stringsearchlib_tpu_torch.tools import bench
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

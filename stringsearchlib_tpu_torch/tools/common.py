@@ -14,15 +14,12 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import os
 import random
 import subprocess
-import sys
 from typing import Callable, Optional
 
 import torch
 
-_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 PEAK_BYTES = 3.35e12
 PEAK_INT8 = 1979e12
 PEAK_BF16 = 989e12
@@ -217,18 +214,15 @@ def measure(case: Case, reps: int = 5) -> dict:
 
 def headline(n_keys: int, bsz: int, dev):
     """The headline's resident table and ``bsz`` queries' gram slots:
-    ``bench._product_names(n_keys, seed=2)`` built by the port's
-    ``build_index``, queries ``bench._mutate`` under ``random.Random(7)``,
+    ``tools.bench._product_names(n_keys, seed=2)`` built by the port's
+    ``build_index``, queries ``tools.bench._mutate`` under ``random.Random(7)``,
     slots from the engine's ``_prep_rows`` (32 query characters), as the
     reference's probe tools make them.  Returns (tile-major table, (bsz,
     30) int32 slots)."""
-    if _ROOT not in sys.path:
-        sys.path.insert(0, _ROOT)
-    import bench
-
     from ..config import IndexConfig
     from ..index.build import build_index
     from ..search.engine import SearchEngine
+    from . import bench
 
     words = bench._product_names(n_keys, seed=2)
     rng = random.Random(7)

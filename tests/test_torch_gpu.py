@@ -954,3 +954,16 @@ def test_multihost_on_cuda_over_gloo(cuda, tmp_path):
     want = mh._rounded(ShardedEngine(shard_index(host, 4), make_mesh(4, device="cpu"))
                        .search_batch(mh.QUERIES, 0.2, 10))
     assert res[0]["results"] == res[1]["results"] == want
+
+
+def test_bench_run_config_on_cuda(cuda):
+    """The port's bench on the card: launches counted, no plain version."""
+    from stringsearchlib_tpu_torch.tools import bench as pbench
+
+    out = pbench._run_config(pbench._product_names(3000), 64, 0.3, 100, 1,
+                             singles=4)
+    launches = out["launches"]
+    assert sum(v for k, v in launches.items() if k.endswith("_LAUNCHES")) > 0
+    assert not any(v for k, v in launches.items() if k.endswith("_REF_CALLS"))
+    assert out["n_keys"] == 3000 and out["qps"] > 0
+    assert out["single_query_p50_ms"] > 0
