@@ -38,6 +38,9 @@ Drives the port's candidate paths on one CUDA card, through
     over gloo;
   * ``bench.py``'s ``rich_1m`` (1M gram-rich keys, 46,656 grams): K1 and
     the h* finish over a 47,104-row packed table;
+  * queries of more than 127 gram windows on the 10M-key index and on
+    ``wide_100k_g2``'s: the bitmap scan route (K2w's int32 hits and the
+    dense-hits finish);
   * the port's bench entry point (``tools/bench.py``) on ``wide_100k_g2``.
 
 It also launches the K1 probes P1-P9 (``ops.probes``, the port of the
@@ -46,8 +49,8 @@ table is resident.
 
 Phases, each printing one line with its seconds; any failure raises, so the
 script exits non-zero and prints no final ``ok`` line.  They run in the
-order 1-3, 15, 4-5, 21, 6, 11-12, 23-24, 7-10, 22, 16, 18-19, 13-14, 17,
-20, 25-26, 27-28:
+order 1-3, 15, 4-5, 21, 6, 29, 11-12, 23-24, 7-10, 22, 16, 18-19, 13-14,
+17, 20, 25-26, 27-28:
 
   1. device: a CUDA card is required; prints nvidia-smi's name and power
      limit;
@@ -109,7 +112,10 @@ order 1-3, 15, 4-5, 21, 6, 11-12, 23-24, 7-10, 22, 16, 18-19, 13-14, 17,
      dense path; one batch timed fused K1 against K2 + block_hmax, and
      BITMAP_KB_LANES 0 against 65536, with equal results;
   14. wide_100k_g2: 256 queries; route bitmap_kernel, no h*, no block_sel,
-     K2 launches; 32 queries against the dense path;
+     K2 launches; 32 queries against the dense path; then phase 29's check
+     on its index: 64 joined queries of more than 127 windows, every pass
+     bitmap_scan without block_sel, K2w launches, no plain version, all 64
+     against the dense path;
   15. K5 against its plain version on random cases (``K5_CASES``): a
      20k-term short tier at B = 256, a 2M-term long tier at B = 1, wide
      int32 tokens, W = 200 at Qp 32, 33, 65 (uint8 and int32), 129, 130
@@ -224,10 +230,22 @@ order 1-3, 15, 4-5, 21, 6, 11-12, 23-24, 7-10, 22, 16, 18-19, 13-14, 17,
      on wide_100k_g2's corpus: 256 queries, one timed rep, 4 singles;
      bench.py's result keys (less its TPU roofline, plus the launch
      counts), route bitmap_kernel without h* (as phase 14), K2 launches, no
-     plain calls.
+     plain calls;
+  29. the bitmap scan route on the 10M-key index (after phase 6, no
+     rebuild): 256 listings (mutated headline names joined until 128-254
+     gram windows), 32 repeated names and 4 repeated-character queries
+     (one term's count past 127 and 255), threshold 0.1, top-100; one
+     warm-up, then three rounds of a batch on the route and one through
+     the dense path, in turns; every pass bitmap_scan, K2w launches, no
+     plain version; K2w bit-identical to its plain version on every call's
+     counts; every query's results equal to the dense path's; 16 listings
+     one at a time on both paths, in turns; K2w per call and in device time
+     (queued, L2 flushed) at the route's step beside its bound; step, rows
+     sent to the retry pass and to the dense path, each path's peak
+     memory, a traced batch.
 
 The line before the last is a JSON object describing the TPU kernels'
-ports (K1-K6, the postings expansion, P1-P9); the last line is ``{"ok":
+ports (K1-K6, K2w, the postings expansion, P1-P9); the last line is ``{"ok":
 true, "device": {...}}``.
 
 Usage:  python3 chip_smoke.py [--keys N] [--rows2d N] [--rows2d-bitmap N]
@@ -379,12 +397,14 @@ def _edge_cases(gen, device):
 
 
 def _kernel_of(name: str):
-    """'k1' / 'k2' for the instantiations of csrc/bitmap_hits.cu's kernels
-    (demangled or mangled name), 'g' for csrc/gather_rows.cu's, 'k5' for
-    csrc/dp_match.cu's, 'k6' for either of csrc/gather_tables.cu's, 'probe'
-    for the K1 probes', else None."""
+    """'k1' / 'k2' / 'k2w' for the instantiations of csrc/bitmap_hits.cu's
+    kernels (demangled or mangled name), 'g' for csrc/gather_rows.cu's, 'k5'
+    for csrc/dp_match.cu's, 'k6' for either of csrc/gather_tables.cu's,
+    'probe' for the K1 probes', else None."""
     if "gather_rows_kernel" in name:
         return "g"
+    if "bitmap_hits_wide_kernel" in name:
+        return "k2w"
     if "probe_hits_kernel" in name or "probe_stream_kernel" in name:
         return "probe"
     if "dp_match_kernel" in name:
@@ -418,7 +438,8 @@ def _device_spans(run):
 
 def _trace(run) -> dict:
     """One traced call of ``run`` under torch.profiler: device time by
-    kernel name (top 8) and by aten op (top 10), K1's and K2's shares, and
+    kernel name (top 8) and by aten op (top 10), K1's, K2's and K2w's
+    shares, and
     the device's busy and idle share of the call's wall time (kernel
     intervals merged)."""
     prof, wall_us, spans = _device_spans(run)
@@ -446,6 +467,7 @@ def _trace(run) -> dict:
     ops.sort(key=lambda x: -x[1])
     k1 = sum(v for k, v in by_name.items() if _kernel_of(k) == "k1")
     k2 = sum(v for k, v in by_name.items() if _kernel_of(k) == "k2")
+    k2w = sum(v for k, v in by_name.items() if _kernel_of(k) == "k2w")
     g = sum(v for k, v in by_name.items() if _kernel_of(k) == "g")
     k5 = sum(v for k, v in by_name.items() if _kernel_of(k) == "k5")
     k6 = sum(v for k, v in by_name.items() if _kernel_of(k) == "k6")
@@ -455,6 +477,7 @@ def _trace(run) -> dict:
         "device_idle_share": max(0.0, 1.0 - busy / wall_us),
         "k1_ms": k1 / 1e3,
         "k2_ms": k2 / 1e3,
+        "k2w_ms": k2w / 1e3,
         "gather_ms": g / 1e3,
         "k5_ms": k5 / 1e3,
         "k6_ms": k6 / 1e3,
@@ -527,7 +550,7 @@ def _reset_counts() -> None:
     from stringsearchlib_tpu_torch.ops import vgather as k6
 
     bmm.K1_LAUNCHES = bmm.K1_REF_CALLS = bmm.K2_LAUNCHES = bmm.K2_REF_CALLS = 0
-    bmm.G_LAUNCHES = bmm.G_REF_CALLS = 0
+    bmm.G_LAUNCHES = bmm.G_REF_CALLS = bmm.K2W_LAUNCHES = bmm.K2W_REF_CALLS = 0
     k5.K5_LAUNCHES = k5.K5_REF_CALLS = k6.K6_LAUNCHES = k6.K6_REF_CALLS = 0
     k6.EXPAND_LAUNCHES = 0
     for d in (probes.LAUNCHES, probes.REF_CALLS):
@@ -543,6 +566,7 @@ def _counts() -> dict:
         "k1": bmm.K1_LAUNCHES, "k1_plain": bmm.K1_REF_CALLS,
         "k2": bmm.K2_LAUNCHES, "k2_plain": bmm.K2_REF_CALLS,
         "gather": bmm.G_LAUNCHES, "gather_plain": bmm.G_REF_CALLS,
+        "k2w": bmm.K2W_LAUNCHES, "k2w_plain": bmm.K2W_REF_CALLS,
         "k5": k5.K5_LAUNCHES, "k5_plain": k5.K5_REF_CALLS,
         "k6": k6.K6_LAUNCHES, "k6_plain": k6.K6_REF_CALLS,
         "expand": k6.EXPAND_LAUNCHES,
@@ -1053,7 +1077,11 @@ def _wide_g2_route(threshold, limit, dev):
     _check_exact(engine, queries[:32], results[:32], threshold, limit)
     med = sorted(rep_s)[len(rep_s) // 2]
     bm = host.bitmap_tables(engine.BITMAP_BUDGET)
+    t1 = time.perf_counter()
+    scan = _scan_wide_g2(engine, words, SCAN_THRESHOLD_WIDE, limit)
+    scan["seconds"] = time.perf_counter() - t1
     return {
+        "scan": scan,
         "n_keys": len(words), "n_terms": host.n_terms, "n_grams": host.n_grams,
         "build_s": build_s, "table_shape": list(bm[0].shape),
         "qps_median": N_QUERIES_WIDE / med, "rep_s": rep_s, "warmup_s": warm_s,
@@ -1881,6 +1909,295 @@ def _rich_1m(threshold, limit, dev):
     del table, bm, engine, host, words
     torch.cuda.empty_cache()
     return info
+
+
+N_LISTING = 256  # phase 29's joined queries (128-254 gram windows)
+N_REPEAT = 32  # phase 29's repeated names (more than 127 windows)
+N_SCAN_SINGLE = 16
+N_SCAN_WIDE = 64  # phase 14's joined queries on wide_100k_g2's index
+SCAN_THRESHOLD = 0.1  # at 0.3 a 150-window query cannot reach a 25-character key
+SCAN_THRESHOLD_WIDE = 0.05  # wide_100k_g2's keys hold 4-13 characters
+# repeated characters: one term's count past 127 and past 255
+SCAN_CHARS = ("1" * 140, "1" * 300, "0" * 200, "0" * 600)
+
+
+def _scan_windows(engine, q: str) -> int:
+    return engine._normalize_query(q)[1] - engine.cfg.gram_size + 1
+
+
+def _joined_queries(engine, words, n: int, rng, lo: int, hi: int) -> list:
+    """``bench._mutate``d keys joined by spaces until a query holds ``lo``
+    to ``hi`` gram windows."""
+    from stringsearchlib_tpu_torch.tools import bench
+
+    out = []
+    while len(out) < n:
+        q = bench._mutate(rng, rng.choice(words))
+        while _scan_windows(engine, q) < lo:
+            q += " " + bench._mutate(rng, rng.choice(words))
+        if _scan_windows(engine, q) <= hi:
+            out.append(q)
+    return out
+
+
+def _scan_queries(engine, words) -> tuple:
+    """Phase 29's queries (``random.Random(17)``): listings (mutated
+    headline names joined until 128-254 gram windows), repeats (one mutated
+    name repeated past 127 windows: row multiplicities above 1) and the
+    repeated characters of SCAN_CHARS."""
+    from stringsearchlib_tpu_torch.tools import bench
+
+    rng = random.Random(17)
+    listing = _joined_queries(engine, words, N_LISTING, rng, 128, 254)
+    repeat = []
+    for _ in range(N_REPEAT):
+        name = bench._mutate(rng, rng.choice(words))
+        q = name
+        while _scan_windows(engine, q) <= 127:
+            q += " " + name
+        repeat.append(q)
+    return listing, repeat, list(SCAN_CHARS)
+
+
+def _wide_kernel_alone(q, table) -> dict:
+    """K2w alone on ``q``'s compacted row lists, made once: device ms per
+    call queued back to back, and with the L2 flushed before each call."""
+    import torch
+    from stringsearchlib_tpu_torch.ops import bitmap_matmul as bmm
+    from stringsearchlib_tpu_torch.ops import kernels
+
+    width = int((q != 0).sum(1).max())
+    rows, mults = bmm._compact_qcnt(q, width)
+    b, (ntiles, gp) = q.shape[0], bmm.table_shape(table)
+    hits = torch.empty((b, ntiles * bmm.TILE_LANES), dtype=torch.int32, device=q.device)
+    launch = kernels.lib("bitmap_hits").bitmap_hits_wide_launch
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        launch(table.data_ptr(), rows.data_ptr(), mults.data_ptr(), hits.data_ptr(),
+               b, gp, ntiles, rows.shape[1], stream)
+    return {"queued_device_ms": _queued_ms(run, 10), "flushed_device_ms": _flushed_ms(run, 10),
+            "list_width": int(rows.shape[1])}
+
+
+def _wide_operands(engine, run) -> list:
+    """``run()`` with ``bitmap_hits_wide`` spied on: each call's counts
+    (cloned) and table (the resident one, not copied)."""
+    from stringsearchlib_tpu_torch.ops import bitmap_matmul as bmm
+
+    calls, orig = [], bmm.bitmap_hits_wide
+
+    def spy(qcnt, planes):
+        calls.append((qcnt.clone(), planes))
+        return orig(qcnt, planes)
+
+    bmm.bitmap_hits_wide = spy
+    try:
+        run()
+    finally:
+        bmm.bitmap_hits_wide = orig
+    return calls
+
+
+def _with_groups(engine, fn):
+    """``fn()`` with every candidate pass and every query-width group's
+    escalation recorded: (fn's result, passes as ``_with_passes``, [(items,
+    rows sent to the dense path, routing)] per group)."""
+    groups = []
+    orig = engine._run_candidate_chunks
+
+    def spy(items, *a):
+        retry = orig(items, *a)
+        groups.append((len(items), len(retry), dict(engine.last_routing)))
+        return retry
+
+    engine._run_candidate_chunks = spy
+    try:
+        res, passes = _with_passes(engine, fn)
+    finally:
+        del engine._run_candidate_chunks
+    return res, passes, groups
+
+
+def _scan_passes_ok(passes, groups, what: str) -> dict:
+    """Every candidate pass routed bitmap_scan; the rows each group sent to
+    the full retry pass and to the dense path."""
+    bad = [rt for _, _, rt in passes if rt.get("variant") != "bitmap_scan"]
+    if not passes or bad:
+        raise AssertionError(f"{what}: passes not bitmap_scan: {bad[:2] or passes}")
+    return {
+        "passes": len(passes), "groups": len(groups),
+        "steps": sorted({rt["step"] for _, _, rt in passes}),
+        "block_sel": sorted({bool(rt["block_sel"]) for _, _, rt in passes}),
+        "rows": sum(n for n, _, _ in groups),
+        "retry_fast": sum(rt.get("retry_fast", 0) for _, _, rt in groups),
+        "to_dense": sum(d for _, d, _ in groups),
+    }
+
+
+def _scan_10m(engine, table, words, smi, dev) -> dict:
+    """Phase 29: the bitmap scan route on the resident 10M-key headline
+    index (no rebuild).  Queries of more than 127 gram windows
+    (``_scan_queries``: 256 listings, 32 repeats, 4 repeated-character
+    queries) at threshold 0.1, top-100: one warm-up, then three rounds of a
+    timed batch on the route and one through the dense path, in turns;
+    every candidate pass bitmap_scan, K2w launches and no plain version;
+    K2w bit-identical to its plain version on every call's real counts;
+    results equal to the dense path's as tie groups for every query; 16
+    listings one at a time on the route and on the dense path, in turns;
+    K2w per call and in device time at the route's step beside its bound;
+    the step, the rows sent to the full retry pass and to the dense path,
+    and the peak memory of each path."""
+    import torch
+    from stringsearchlib_tpu_torch.ops import bitmap_matmul as bmm
+
+    threshold, limit = SCAN_THRESHOLD, LIMIT
+    listing, repeat, chars = _scan_queries(engine, words)
+    queries = listing + repeat + chars
+    windows = [_scan_windows(engine, q) for q in queries]
+    base_mem = int(torch.cuda.memory_allocated())
+    route_s, dense_s, peaks = [], [], {}
+
+    def turns():
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        res = engine.search_batch(queries, threshold, limit, batch_bucket=512)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t1
+        peaks["route"] = int(torch.cuda.max_memory_allocated())
+        # the listings and repeats alone: no row of theirs goes dense
+        torch.cuda.reset_peak_memory_stats()
+        engine.search_batch(listing + repeat, threshold, limit, batch_bucket=512)
+        torch.cuda.synchronize()
+        peaks["route_no_dense_rows"] = int(torch.cuda.max_memory_allocated())
+        for _ in range(REPS):
+            t1 = time.perf_counter()
+            res = engine.search_batch(queries, threshold, limit, batch_bucket=512)
+            torch.cuda.synchronize()
+            route_s.append(time.perf_counter() - t1)
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            dense = engine.search_batch(queries, threshold, limit, batch_bucket=512,
+                                        mode="dense")
+            torch.cuda.synchronize()
+            dense_s.append(time.perf_counter() - t1)
+            peaks["dense"] = int(torch.cuda.max_memory_allocated())
+        return res, dense, warm
+
+    _reset_counts()
+    (results, dense, warm_s), passes, groups = _with_groups(engine, turns)
+    counts = _counts()
+    # the warm-up's query-width groups, then the listings' own run
+    n_groups = len({max(32, 1 << (engine._normalize_query(q)[1] - 1).bit_length())
+                    for q in queries})
+    route = _scan_passes_ok(passes, groups[:n_groups], "phase 29")
+    if counts["k2w"] <= 0 or any(counts[k] for k in counts if k.endswith("_plain")):
+        raise AssertionError(f"phase 29 counts {counts}")
+    _check_results(results, queries, threshold, limit)
+    # every query against the dense turns' results
+    _same_groups(results, dense, "phase 29 route against the dense path")
+    # K2w against its plain version on every call's real counts
+    calls = _wide_operands(engine, lambda: engine.search_batch(
+        queries, threshold, limit, batch_bucket=512))
+    err, sums = 0, []
+    for q, planes in calls:
+        kh, rh = bmm.bitmap_hits_wide(q, planes), bmm.bitmap_hits_wide_ref(q, planes)
+        torch.cuda.synchronize()
+        e = _max_abs_err(kh, rh)
+        err = max(err, e)
+        sums.append(int(q.sum(1).max()))
+        if e or not torch.equal(kh, rh):
+            raise AssertionError(f"K2w differs from its plain version at B={q.shape[0]}, "
+                                 f"largest sum {sums[-1]}: {e}")
+        del kh, rh
+    torch.cuda.empty_cache()
+    # the route's step: the first call is a full chunk of listings
+    q = calls[0][0]
+    b, ntiles = int(q.shape[0]), int(table.shape[0])
+    nbytes, ops = hits_bound(q, ntiles, b * ntiles * bmm.TILE_LANES * 4)
+    bound = _bound(nbytes, ops, PEAK_INT8)
+    k2w = {
+        "b": b, "ms": _cuda_ms(lambda: bmm.bitmap_hits_wide(q, table), 5),
+        "plain_ms": _cuda_ms(lambda: bmm.bitmap_hits_wide_ref(q, table), 1),
+        **_wide_kernel_alone(q, table),
+        "bound_ms": bound[0], "bound_by": bound[1],
+        "listed_rows": int((q != 0).any(0).sum()), "largest_sum": int(q.sum(1).max()),
+        "hits_bytes": b * ntiles * bmm.TILE_LANES * 4,
+        "calls_per_batch": len(calls), "call_b": [int(c[0].shape[0]) for c in calls],
+        "call_largest_sums": sums, "max_abs_err": err,
+    }
+    del calls, q
+    torch.cuda.empty_cache()
+    k2w["trace"] = _trace(lambda: engine.search_batch(queries, threshold, limit,
+                                                       batch_bucket=512))
+    # single listings, one at a time, in turns with the dense path
+    singles = listing[:N_SCAN_SINGLE]
+    engine.search_batch(singles[:1], threshold, limit)
+    engine.search_batch(singles[:1], threshold, limit, mode="dense")
+    s_route, s_dense = [], []
+
+    def single_turns():
+        for sq in singles:
+            t1 = time.perf_counter()
+            got = engine.search_batch([sq], threshold, limit)
+            torch.cuda.synchronize()
+            s_route.append((time.perf_counter() - t1) * 1e3)
+            t1 = time.perf_counter()
+            want = engine.search_batch([sq], threshold, limit, mode="dense")
+            torch.cuda.synchronize()
+            s_dense.append((time.perf_counter() - t1) * 1e3)
+            _same_groups(got, want, "phase 29 single")
+
+    _, single_passes, single_groups = _with_groups(engine, single_turns)
+    s_route.sort()
+    s_dense.sort()
+    med_r, med_d = sorted(route_s)[len(route_s) // 2], sorted(dense_s)[len(dense_s) // 2]
+    return {
+        "n_queries": len(queries), "n_listing": len(listing), "n_repeat": len(repeat),
+        "n_chars": len(chars), "windows": [min(windows), max(windows)],
+        "threshold": threshold, "limit": limit,
+        "qps_median": len(queries) / med_r, "dense_qps_median": len(queries) / med_d,
+        "rep_s": route_s, "dense_rep_s": dense_s, "warmup_s": warm_s,
+        "routing": route, "routing_last": dict(engine.last_routing), "counts": counts,
+        "peak_mem_route_bytes": peaks["route"], "peak_mem_dense_bytes": peaks["dense"],
+        "peak_mem_route_no_dense_rows_bytes": peaks["route_no_dense_rows"],
+        "no_dense_rows_to_dense": groups[n_groups][1],
+        "resident_bytes": base_mem,
+        "single_ms": {"n": len(singles), "p50": _pct(s_route, 0.5), "p90": _pct(s_route, 0.9),
+                      "dense_p50": _pct(s_dense, 0.5), "dense_p90": _pct(s_dense, 0.9),
+                      "variants": sorted({rt["variant"] for _, _, rt in single_passes}),
+                      "to_dense": sum(d for _, d, _ in single_groups)},
+        "k2w": k2w, "checked_against_dense": len(queries),
+        "mean_results": sum(len(k) for k, _ in results) / len(results),
+        "card": smi,
+    }
+
+
+def _scan_wide_g2(engine, words, threshold, limit) -> dict:
+    """Phase 29's check on wide_100k_g2's index (phase 14 holds it): 64
+    joined queries of more than 127 gram windows (``random.Random(19)``);
+    every pass bitmap_scan without block_sel, K2w launches and no plain
+    version, results equal to the dense path's."""
+    import torch
+
+    queries = _joined_queries(engine, words, N_SCAN_WIDE, random.Random(19), 128, 254)
+    _reset_counts()
+    t1 = time.perf_counter()
+    results, passes, groups = _with_groups(
+        engine, lambda: engine.search_batch(queries, threshold, limit, batch_bucket=512))
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t1
+    counts = _counts()
+    route = _scan_passes_ok(passes, groups, "wide_100k_g2 scan")
+    if route["block_sel"] != [False]:
+        raise AssertionError(f"wide_100k_g2 scan took block_sel: {route}")
+    if counts["k2w"] <= 0 or any(counts[k] for k in counts if k.endswith("_plain")):
+        raise AssertionError(f"wide_100k_g2 scan counts {counts}")
+    _check_results(results, queries, threshold, limit)
+    _check_exact(engine, queries, results, threshold, limit)
+    return {"n_queries": len(queries), "threshold": threshold, "batch_s": batch_s,
+            "routing": route, "counts": counts,
+            "mean_results": sum(len(k) for k, _ in results) / len(results)}
 
 
 # the keys of bench.py's per-config dict with singles, less its TPU roofline,
@@ -2998,7 +3315,7 @@ def main() -> None:
 
 
 def _phases(args, smi: str, kind: str, count: int, dev, oracle_job, oracle_10m) -> None:
-    """Phases 2-28 and the two result lines, on card ``dev``."""
+    """Phases 2-29 and the two result lines, on card ``dev``."""
     import torch
 
     # -- 2. build ---------------------------------------------------------------
@@ -3247,6 +3564,16 @@ def _phases(args, smi: str, kind: str, count: int, dev, oracle_job, oracle_10m) 
     _check_exact(engine, queries[:32], results[:32], threshold, limit)
     _phase("exactness", t0, queries=32)
 
+    # -- 29. the bitmap scan route: queries of more than 127 windows ---------
+    t0 = time.perf_counter()
+    scan = _scan_10m(engine, table, words, smi, dev)
+    print(json.dumps({"scan_10m": scan}), flush=True)
+    scan["seconds"] = time.perf_counter() - t0
+    _phase("scan_10m", t0, qps=round(scan["qps_median"], 2),
+           dense_qps=round(scan["dense_qps_median"], 2), step=scan["routing"]["steps"],
+           k2w_launches=scan["counts"]["k2w"], k2w_device_ms=scan["k2w"]["queued_device_ms"],
+           bound_ms=round(scan["k2w"]["bound_ms"], 4))
+
     # -- 11. the row gather vs plain, random tables --------------------------
     t0 = time.perf_counter()
     g_err, g_cases, g_timing = _gather_random(gen, dev, int(table.shape[0]))
@@ -3486,7 +3813,8 @@ def _phases(args, smi: str, kind: str, count: int, dev, oracle_job, oracle_10m) 
     wide = _wide_g2_route(threshold, limit, dev)
     print(json.dumps({"wide_100k_g2": wide, "card": smi}), flush=True)
     _phase("wide_g2", t0, qps=round(wide["qps_median"], 2),
-           k2_launches=wide["k2_launches"])
+           k2_launches=wide["k2_launches"], scan_k2w_launches=wide["scan"]["counts"]["k2w"],
+           scan_s=round(wide["scan"]["seconds"], 2))
     torch.cuda.empty_cache()
 
     # -- 17. wide_100k_g3: the sorted runs -------------------------------------------
@@ -3588,6 +3916,23 @@ def _phases(args, smi: str, kind: str, count: int, dev, oracle_job, oracle_10m) 
         "bound_ms": k2_timing[256]["bound_ms"],
         "bound_by": k2_timing[256]["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "bitmap_hits_wide",
+        "route": "cuda",
+        "source": src,
+        # no Pallas kernel: the reference's bitmap_scan hits are an XLA scan
+        "replaces": "stringsearchlib_tpu/search/candidates.py:1048",
+        "launches": scan["counts"]["k2w"],
+        "max_abs_err": scan["k2w"]["max_abs_err"],
+        "ms": scan["k2w"]["ms"],
+        "device_ms": scan["k2w"]["queued_device_ms"],
+        "flushed_device_ms": scan["k2w"]["flushed_device_ms"],
+        "b": scan["k2w"]["b"],
+        "plain_ms": scan["k2w"]["plain_ms"],
+        "bound_ms": scan["k2w"]["bound_ms"],
+        "bound_by": scan["k2w"]["bound_by"],
+        "library_ms": None,
+        "wide_100k_g2_launches": wide["scan"]["counts"]["k2w"],
     }] + [{
         "name": name,
         "route": "cuda",

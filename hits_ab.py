@@ -366,7 +366,8 @@ def main() -> None:
                 "trace_device_ms": traced,
                 "bound_ms": bound[0], "bound_by": bound[1],
                 "issue": cs._hits_issue(q, int(planes.shape[0])),
-                "sass_new": {fn[-24:]: _per_word_row(ins, q) for fn, ins in new_ins.items()},
+                "sass_new": {fn[-24:]: _per_word_row(ins, q) for fn, ins in new_ins.items()
+                             if "wide" not in fn},
             }
             _log(tag, b, json.dumps(res[b]))
             torch.cuda.empty_cache()

@@ -64,7 +64,27 @@
 //     registers: a byte-wise max over the lane's words, then a max over the
 //     8 lanes that share a block.  K2 compiles that epilogue out.
 //
-// Every offset is size_t.  The kernel allocates nothing and does not
+// K2w, the wide counts (bitmap_hits_wide_launch), is the same counting body
+// under an int32 epilogue, for queries of more than 127 gram windows.  It
+// replaces no Pallas kernel: the reference's route for such queries is an
+// XLA scan, candidates_bitmap_impl (stringsearchlib_tpu/search/
+// candidates.py:1048), which accumulates one unpacked table row per query
+// gram slot into int32 hits.  Contract:
+//
+//   hits[b, t] = sum_g qcnt[b, g] * bit(g, t)        int32, term order
+//
+// for sum_g qcnt[b, g] <= 65535, on tile-major tables.  The list's sum picks
+// 8..16 counter slices per warp (counts below 2^NS); each group of 8 slices
+// goes through the same 8 x 8 transpose, which gives the low and the high
+// byte of every count, and __byte_perm joins them into 16-bit halves.  What
+// bounds it: the listed rows read once and the int32 hits written once,
+// four times K2's hit bytes; so each plane's 16 counts per lane are staged
+// through the warp's 2 KB of shared memory and written back as 512
+// contiguous bytes per store instruction (the store path of P8's int32
+// epilogue, csrc/probe_hits.cu store_raw32_staged), every 32-byte sector
+// whole.
+//
+// Every offset is size_t.  The kernels allocate nothing and do not
 // synchronise.
 
 #include "bitmap_hits.cuh"
@@ -149,6 +169,96 @@ bitmap_hits_rowmajor_kernel(const uint8_t* __restrict__ planes,
                     Strided{(size_t)ntiles * kBlkb, (size_t)kBlkb});
 }
 
+// K2w's epilogue for one (query, tile): the lane's 16 terms of each plane
+// (byte k of word i is term 16 * lane + 4 * i + k) as int32 counts, staged
+// through the warp's 2 KB of shared memory.  Chunk q (16 bytes) of a plane
+// sits at q ^ ((q >> 3) & 3), so the lanes' writes (chunks 4 lane + c) and
+// reads (chunks 32 c + lane) are free of bank conflicts.
+template <int NS>
+__device__ __forceinline__ void wide_query(const uint8_t* tile_base,
+                                           const int32_t* rp, const int32_t* mp,
+                                           int n1, int n, int gp, int lane,
+                                           int32_t* out, uint4* stage) {
+  static_assert(NS >= 8 && NS <= 16, "two groups of 8 slices at most");
+  uint32_t lo[4][8], hi[4][8];
+  {
+    uint32_t s[4][NS];
+    count_slices<NS>(tile_base, TileMajor{gp}, rp, mp, n1, n, s);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      to_planes<NS, 0>(s[i], lo[i]);
+      to_planes<NS, 8>(s[i], hi[i]);
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    uint32_t o[16];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // bytes 0, 1 and 2, 3 of the plane word: count = low | high << 8
+      const uint32_t x = __byte_perm(lo[i][p], hi[i][p], 0x5140);
+      const uint32_t y = __byte_perm(lo[i][p], hi[i][p], 0x7362);
+      o[4 * i] = x & 0xffffu;
+      o[4 * i + 1] = x >> 16;
+      o[4 * i + 2] = y & 0xffffu;
+      o[4 * i + 3] = y >> 16;
+    }
+    __syncwarp();  // every lane has read the previous plane from the stage
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int q = lane * 4 + c;
+      stage[q ^ ((q >> 3) & 3)] = make_uint4(o[4 * c], o[4 * c + 1], o[4 * c + 2],
+                                             o[4 * c + 3]);
+    }
+    __syncwarp();
+    uint4* dst = reinterpret_cast<uint4*>(out + (size_t)p * kBlkb);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int q = c * 32 + lane;
+      __stcs(dst + q, stage[q ^ ((q >> 3) & 3)]);
+    }
+  }
+}
+
+// K2w: one block per (layout tile, group of 16 queries), the group fastest,
+// one warp per query at a time, as K1; tile-major tables
+__global__ void __launch_bounds__(kWarps * 32, 1)
+bitmap_hits_wide_kernel(const uint8_t* __restrict__ planes,
+                        const int32_t* __restrict__ rows,
+                        const int32_t* __restrict__ mults,
+                        int32_t* __restrict__ hits,
+                        int n_queries, int gp, int ntiles, int vmax) {
+  const int groups = (n_queries + kQueriesPerBlock - 1) / kQueriesPerBlock;
+  const int tile = blockIdx.x / groups;
+  const int group = blockIdx.x - tile * groups;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const uint8_t* tile_base = planes + TileMajor{gp}.tile(tile) + (size_t)lane * 16;
+  const size_t hits_row = (size_t)ntiles * kTileLanes;
+  const int q_end = min(n_queries, (group + 1) * kQueriesPerBlock);
+  __shared__ uint4 stage[kWarps * 128];  // 2 KB a warp
+  for (int b = group * kQueriesPerBlock + warp; b < q_end; b += kWarps) {
+    const int32_t* rp = rows + (size_t)b * vmax;
+    const int32_t* mp = mults + (size_t)b * vmax;
+    int total, n1, n;
+    list_stats(mp, vmax, lane, total, n1, n);
+    int32_t* out = hits + (size_t)b * hits_row + (size_t)tile * kTileLanes;
+    uint4* st = stage + warp * 128;
+    // slices for counts below 2^NS: the bits of the sum, at least 8
+    switch (max(8, 32 - __clz(total))) {
+      case 8: wide_query<8>(tile_base, rp, mp, n1, n, gp, lane, out, st); break;
+      case 9: wide_query<9>(tile_base, rp, mp, n1, n, gp, lane, out, st); break;
+      case 10: wide_query<10>(tile_base, rp, mp, n1, n, gp, lane, out, st); break;
+      case 11: wide_query<11>(tile_base, rp, mp, n1, n, gp, lane, out, st); break;
+      case 12: wide_query<12>(tile_base, rp, mp, n1, n, gp, lane, out, st); break;
+      case 13: wide_query<13>(tile_base, rp, mp, n1, n, gp, lane, out, st); break;
+      case 14: wide_query<14>(tile_base, rp, mp, n1, n, gp, lane, out, st); break;
+      case 15: wide_query<15>(tile_base, rp, mp, n1, n, gp, lane, out, st); break;
+      default: wide_query<16>(tile_base, rp, mp, n1, n, gp, lane, out, st); break;
+    }
+  }
+}
+
 template <bool kBmax, bool kRowMajor>
 int launch(const void* planes, const void* rows, const void* mults,
            void* hits, void* bmax, int n_queries, int gp, int ntiles,
@@ -206,4 +316,22 @@ extern "C" int bitmap_hits_rowmajor_launch(const void* planes,
                                            int vmax, void* stream) {
   return launch<false, true>(planes, rows, mults, hits, nullptr, n_queries,
                              gp, ntiles, vmax, stream);
+}
+
+// K2w: int32 hits of sums up to 65535 on a tile-major table; lists of any
+// width that is a multiple of 4
+extern "C" int bitmap_hits_wide_launch(const void* planes, const void* rows,
+                                       const void* mults, void* hits,
+                                       int n_queries, int gp, int ntiles,
+                                       int vmax, void* stream) {
+  if (vmax % 4 || vmax <= 0) return (int)cudaErrorInvalidValue;
+  const long long blocks =
+      (long long)ntiles * ((n_queries + kQueriesPerBlock - 1) / kQueriesPerBlock);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  bitmap_hits_wide_kernel<<<(unsigned)blocks, kWarps * 32, 0,
+                            reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(planes), static_cast<const int32_t*>(rows),
+      static_cast<const int32_t*>(mults), static_cast<int32_t*>(hits), n_queries,
+      gp, ntiles, vmax);
+  return (int)cudaGetLastError();
 }

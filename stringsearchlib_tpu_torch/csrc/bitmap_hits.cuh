@@ -1,12 +1,13 @@
 // The counting body of the hit-count kernels: one query's bit-plane counts
 // over one 512-byte slice of a layout tile, from a compacted row list.
 //
-// Shared by csrc/bitmap_hits.cu (K1 / K2) and csrc/probe_hits.cu (the K1
-// probes P4-P9), which differ only in their epilogues.  bitmap_hits.cu's
-// head comment describes the scheme: bit-sliced carry-save counters per
-// 32-bit word, rows of multiplicity 1 entering 8, 4, 2, 1 at a time, higher
-// multiplicities through a ripple-carry add, and an 8 x 8 bit transpose
-// into the 8 planes of SWAR bytes.
+// Shared by csrc/bitmap_hits.cu (K1 / K2, and the wide counts K2w) and
+// csrc/probe_hits.cu (the K1 probes P4-P9), which differ only in their
+// epilogues.  bitmap_hits.cu's head comment describes the scheme:
+// bit-sliced carry-save counters per 32-bit word, rows of multiplicity 1
+// entering 8, 4, 2, 1 at a time, higher multiplicities through a
+// ripple-carry add, and an 8 x 8 bit transpose into the 8 planes of SWAR
+// bytes (K2w transposes each group of 8 slices alike).
 //
 // Table layouts (bit p of byte k of tile j holds term j*4096 + p*512 + k):
 // tile-major (ntiles, Gp, 512), where row r's slice of tile j sits at
@@ -82,13 +83,14 @@ __device__ __forceinline__ void swap_bits(uint32_t& a, uint32_t& b, int d,
   a ^= t << d;
 }
 
-// slices (bit j of every count) -> planes (byte k of plane p = the count of
-// bit 8k + p): per byte an 8 x 8 bit transpose
-template <int NS>
+// slices OFF..OFF+7 (bit OFF + j of every count; slices past NS are 0) ->
+// planes (byte k of plane p = those 8 bits of the count of bit 8k + p): per
+// byte an 8 x 8 bit transpose
+template <int NS, int OFF = 0>
 __device__ __forceinline__ void to_planes(const uint32_t (&s)[NS],
                                           uint32_t (&t)[8]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) t[j] = j < NS ? s[j < NS ? j : 0] : 0u;
+  for (int j = 0; j < 8; ++j) t[j] = OFF + j < NS ? s[OFF + j < NS ? OFF + j : 0] : 0u;
 #pragma unroll
   for (int j = 0; j < 4; ++j) swap_bits(t[j], t[j + 4], 4, 0x0f0f0f0fu);
 #pragma unroll
@@ -100,15 +102,15 @@ __device__ __forceinline__ void to_planes(const uint32_t (&s)[NS],
   for (int j = 0; j < 8; j += 2) swap_bits(t[j], t[j + 1], 1, 0x55555555u);
 }
 
-// One query's counts over one tile slice: n1 rows of multiplicity 1 first,
-// then n - n1 rows of higher multiplicity; acc[p][i] = plane p of word i.
+// One query's bit-sliced counts over one tile slice: n1 rows of
+// multiplicity 1 first, then n - n1 rows of higher multiplicity;
+// s[i][j] = slice j of word i.  Every count stays below 2^NS.
 template <int NS, class Layout>
-__device__ __forceinline__ void count_rows(const uint8_t* tile_base,
-                                           const Layout& layout,
-                                           const int32_t* rp,
-                                           const int32_t* mp, int n1, int n,
-                                           uint32_t (&acc)[8][4]) {
-  uint32_t s[4][NS];
+__device__ __forceinline__ void count_slices(const uint8_t* tile_base,
+                                             const Layout& layout,
+                                             const int32_t* rp,
+                                             const int32_t* mp, int n1, int n,
+                                             uint32_t (&s)[4][NS]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -179,6 +181,18 @@ __device__ __forceinline__ void count_rows(const uint8_t* tile_base,
       s[i][NS - 1] ^= ((m >> (NS - 1)) & 1u ? w : 0u) ^ c;
     }
   }
+}
+
+// One query's counts over one tile slice as SWAR bytes (NS <= 8):
+// acc[p][i] = plane p of word i.
+template <int NS, class Layout>
+__device__ __forceinline__ void count_rows(const uint8_t* tile_base,
+                                           const Layout& layout,
+                                           const int32_t* rp,
+                                           const int32_t* mp, int n1, int n,
+                                           uint32_t (&acc)[8][4]) {
+  uint32_t s[4][NS];
+  count_slices<NS>(tile_base, layout, rp, mp, n1, n, s);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     uint32_t t[8];
@@ -186,6 +200,22 @@ __device__ __forceinline__ void count_rows(const uint8_t* tile_base,
 #pragma unroll
     for (int p = 0; p < 8; ++p) acc[p][i] = t[p];
   }
+}
+
+// A query list's sum, its rows of multiplicity 1 and its length, over the
+// warp (every lane gets them)
+__device__ __forceinline__ void list_stats(const int32_t* mp, int vmax, int lane,
+                                           int& total, int& n1, int& n) {
+  total = n1 = n = 0;
+  for (int k = lane; k < vmax; k += 32) {
+    const int m = __ldg(mp + k);
+    total += m;
+    n1 += m == 1;
+    n += m != 0;
+  }
+  total = __reduce_add_sync(0xffffffffu, total);
+  n1 = __reduce_add_sync(0xffffffffu, n1);
+  n = __reduce_add_sync(0xffffffffu, n);
 }
 
 // One warp: query list (rp, mp) of length vmax (zero-terminated, rows of
@@ -197,17 +227,8 @@ __device__ __forceinline__ void count_query(const uint8_t* tile_base,
                                             const int32_t* rp,
                                             const int32_t* mp, int vmax,
                                             int lane, uint32_t (&acc)[8][4]) {
-  // the list's sum, its rows of multiplicity 1 and its length
-  int total = 0, n1 = 0, n = 0;
-  for (int k = lane; k < vmax; k += 32) {
-    const int m = __ldg(mp + k);
-    total += m;
-    n1 += m == 1;
-    n += m != 0;
-  }
-  total = __reduce_add_sync(0xffffffffu, total);
-  n1 = __reduce_add_sync(0xffffffffu, n1);
-  n = __reduce_add_sync(0xffffffffu, n);
+  int total, n1, n;
+  list_stats(mp, vmax, lane, total, n1, n);
   if (total <= 15) {
     count_rows<4>(tile_base, layout, rp, mp, n1, n, acc);
   } else if (total <= 31) {

@@ -12,6 +12,10 @@ holds term ``j*8*BLKB + p*BLKB + k``; resident tables are tile-major
 its table layouts, tile-major and row-major ``(Gp, NB)`` (the reference's
 gathered route over row-major tables); on a CUDA tensor each launches its
 entry of the hand-written kernel in ``csrc/bitmap_hits.cu``.
+``bitmap_hits_wide`` (K2w) counts the same hits as int32 for sums up to
+``WIDE_MAX_SUM`` on tile-major tables: the hits of the reference's
+per-slot scan (``candidates_bitmap_impl``, an XLA scan, no Pallas kernel)
+for queries of more than 127 gram windows, from the same source.
 ``gather_rows`` (``out[i] = table[rows[i]]`` along
 the gram axis of either layout) launches ``csrc/gather_rows.cu``, which
 serves both of the reference's TPU gathers: ``gather_rows_dma`` (K3) and
@@ -49,6 +53,8 @@ _SUBS = TILE_LANES // _BMAX_BLK  # 128-term blocks per layout tile (32)
 # row-list width: the <= 127 contract bounds a query's nonzero qcnt columns
 # by 127, and 128 int32 keep every list 16-byte aligned
 _LIST = 128
+# K2w's bound on a query's multiplicity sum: 16 counter slices
+WIDE_MAX_SUM = (1 << 16) - 1
 
 # launches of each CUDA kernel (K1 bitmap_hits_bmax, K2 bitmap_hits, and
 # the row gather G that serves K3 and K4), and calls of its plain version
@@ -59,6 +65,8 @@ K2_LAUNCHES = 0
 K2_REF_CALLS = 0
 G_LAUNCHES = 0
 G_REF_CALLS = 0
+K2W_LAUNCHES = 0
+K2W_REF_CALLS = 0
 # bytes of the float32 operand the plain versions unpack at a time
 _PLAIN_CHUNK_BYTES = 1 << 30
 
@@ -91,13 +99,14 @@ def from_tile_major(planes3):
     return planes3.permute(1, 0, 2).reshape(gp, nt * blkb)
 
 
-def _compact_qcnt(qcnt):
-    """(B, Gp) multiplicities -> zero-terminated (B, V) int32 row and
-    multiplicity lists, V = min(Gp, 128) (a multiple of 4, as the kernel's
+def _compact_qcnt(qcnt, width: int = _LIST):
+    """(B, Gp) multiplicities -> (B, V) int32 row and multiplicity lists,
+    V = min(Gp, ``width`` rounded up to a multiple of 4, as the kernels'
     vector loads need): the columns of multiplicity 1, then the other
-    nonzero ones, each in row order."""
+    nonzero ones, each in row order, then zeros.  ``width`` must be at
+    least every row's count of nonzero columns."""
     gp = qcnt.shape[1]
-    v = min(gp, _LIST)
+    v = min(gp, -(-max(width, 1) // 4) * 4)
     key = (qcnt == 0).to(torch.uint8) * 2 + (qcnt != 1).to(torch.uint8)
     order = torch.argsort(key, dim=1, stable=True)[:, :v]
     rows = order.to(torch.int32).contiguous()
@@ -139,13 +148,13 @@ def _check(qcnt, planes):
         raise ValueError(f"qcnt on {qcnt.device}, planes on {planes.device}")
 
 
-def _cuda_operands(qcnt, planes):
+def _cuda_operands(qcnt, planes, width: int = _LIST):
     """Checks a CUDA call's table and compacts its counts."""
     if planes.device.type != "cuda":
         raise ValueError(f"unsupported device {planes.device}")
     if not planes.is_contiguous() or planes.data_ptr() % 16:
         raise ValueError("planes must be contiguous and 16-byte aligned")
-    return _compact_qcnt(qcnt)
+    return _compact_qcnt(qcnt, width)
 
 
 def bitmap_hits_bmax(qcnt, planes):
@@ -222,6 +231,60 @@ def bitmap_hits(qcnt, planes):
     return hits
 
 
+def _check_wide(qcnt, planes) -> int:
+    """``_check`` for K2w, which takes tile-major tables and multiplicities
+    in [0, WIDE_MAX_SUM] summing to at most WIDE_MAX_SUM per row.  Returns
+    the largest count of nonzero columns in a row (one read back from the
+    device).  Raises on anything else."""
+    if planes.ndim != 3:
+        raise ValueError(f"planes must be tile-major (ntiles, Gp, {BLKB}), got "
+                         f"{tuple(planes.shape)}")
+    _check(qcnt, planes)
+    if qcnt.shape[0] == 0:
+        return 0
+    q = qcnt.to(torch.int64)
+    lo, top, nnz = torch.stack(
+        [q.min(), q.sum(1).max(), (q != 0).sum(1).max()]
+    ).tolist()
+    if lo < 0 or top > WIDE_MAX_SUM:
+        raise ValueError(f"multiplicities must be >= 0 and sum to <= {WIDE_MAX_SUM} "
+                         f"a row, got min {lo}, largest sum {top}")
+    return nnz
+
+
+def bitmap_hits_wide(qcnt, planes):
+    """qcnt (B, Gp) multiplicities (integer values >= 0, each row summing to
+    <= WIDE_MAX_SUM, else ValueError)  x  planes, int8 packed incidence,
+    tile-major (ntiles, Gp, BLKB)  ->  hits (B, ntiles*TILE_LANES) int32 in
+    term order: K2's hits without the <= 127 bound (the hits of the
+    reference's ``candidates_bitmap_impl`` scan).
+
+    CUDA tensors launch the K2w kernel; CPU tensors run the plain version."""
+    global K2W_LAUNCHES, K2W_REF_CALLS
+    width = _check_wide(qcnt, planes)
+    if planes.device.type == "cpu":
+        K2W_REF_CALLS += 1
+        return bitmap_hits_wide_ref(qcnt, planes)
+    b = qcnt.shape[0]
+    ntiles, gp = table_shape(planes)
+    hits = torch.empty((b, ntiles * TILE_LANES), dtype=torch.int32,
+                       device=planes.device)
+    if b == 0 or ntiles == 0:
+        return hits
+    rows, mults = _cuda_operands(qcnt, planes, width)
+    lib = _lib("bitmap_hits")
+    with torch.cuda.device(planes.device):
+        stream = torch.cuda.current_stream(planes.device).cuda_stream
+        err = lib.bitmap_hits_wide_launch(
+            planes.data_ptr(), rows.data_ptr(), mults.data_ptr(),
+            hits.data_ptr(), b, gp, ntiles, rows.shape[1], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"bitmap_hits_wide kernel launch failed: cuda error {err}")
+    K2W_LAUNCHES += 1
+    return hits
+
+
 def bitmap_hits_ref(qcnt, planes, chunk_tiles: int = 16):
     """Plain PyTorch version of ``bitmap_hits``: unpack the planes and take
     a float32 product, at most ``chunk_tiles`` layout tiles at a time (fewer
@@ -245,12 +308,24 @@ def bitmap_hits_bmax_ref(qcnt, planes, chunk_tiles: int = 16):
     return hits, bmax
 
 
-def _hits_plain(qcnt, planes, chunk_tiles):
+def bitmap_hits_wide_ref(qcnt, planes, chunk_tiles: int = 16):
+    """Plain PyTorch version of ``bitmap_hits_wide``: ``bitmap_hits_ref``'s
+    float32 product, int32 hits.  Exact while each row's sum stays below
+    2^24, float32's integer range (TF32 off for the product)."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return _hits_plain(qcnt, planes, chunk_tiles, torch.int32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _hits_plain(qcnt, planes, chunk_tiles, dtype=torch.int8):
     ntiles, gp = table_shape(planes)
     b = qcnt.shape[0]
     step = max(1, min(chunk_tiles, _PLAIN_CHUNK_BYTES // (4 * gp * TILE_LANES)))
     q = qcnt.to(torch.float32)
-    hits = torch.empty((b, ntiles * TILE_LANES), dtype=torch.int8,
+    hits = torch.empty((b, ntiles * TILE_LANES), dtype=dtype,
                        device=planes.device)
     shifts = torch.arange(8, dtype=torch.uint8, device=planes.device)
     for t0 in range(0, ntiles, step):
@@ -260,7 +335,7 @@ def _hits_plain(qcnt, planes, chunk_tiles):
         m = bits.reshape(gp, (t1 - t0) * TILE_LANES)
         hits[:, t0 * TILE_LANES : t1 * TILE_LANES] = (
             q @ m.to(torch.float32)
-        ).to(torch.int8)
+        ).to(dtype)
     return hits
 
 

@@ -13,7 +13,9 @@ counts for the whole batch come from one of:
     maxima) or K2 (bitmap_hits, hits only) over the bit-packed incidence -
     the resident table, or on the gathered route
     (``candidates_bitmap_gather``) the batch's own gram rows copied out of it
-    by the gather kernel.
+    by the gather kernel;
+  * ``candidates_bitmap``: K2w (bitmap_hits_wide, int32 hits) over the
+    resident table, for queries of more than 127 gram windows.
 
 One of four finishes then selects candidates:
 
@@ -50,7 +52,7 @@ Multi-key sorts are stable single-key sorts applied least-significant key
 first.  Negated scores are canonicalized (+0.0 for -0.0) before sorting so
 a zero score forms one tie class, as in the reference's float comparator.
 
-Not ported (ROADMAP): the bitmap scan front end; ``topk_guarded``'s
+Not ported (ROADMAP): ``topk_guarded``'s
 approximate mode (selection is exact, so no row ever misses);
 ``BLOCKMAX_IMPL`` (``block_hmax`` is one reduction); the gathered route's
 8-dot XLA branch (the reference's CPU and ``gc % 32`` fallback: Gc is a
@@ -768,6 +770,47 @@ def query_counts(qslots, gp: int):
     qcnt = torch.zeros((b, gp + 1), dtype=torch.int32, device=qslots.device)
     qcnt.scatter_add_(1, idx, torch.ones_like(idx, dtype=torch.int32))
     return qcnt[:, :gp]
+
+
+def candidates_bitmap(
+    di,
+    bitmap,  # (ntiles, G_pad, BLKB) int8 tile-major packed incidence
+    pt,  # (T, 4) int32 primary-edge records (HostIndex.prim_tables)
+    xt,  # (X, 4) int32 extra-edge records
+    qtokens,  # (B, Qp) int32
+    qlens,  # (B,) int32
+    qslots,  # (B, Qmax) int32 gram slots, -1 absent, multiplicity kept
+    n_qgrams,  # (B,) int32
+    use_short,  # (B,) bool
+    promo_ids,  # (B, PK) int32, -1 padded
+    promo_terms,  # (B, PK, PE) int32 promo edge term ids, -1 padded
+    promo_weights,  # (B, PK, PE) float32 promo edge weights
+    limits,  # (B,) int32
+    threshold,  # float32
+    *,
+    compute_short: bool,
+    n_cand: int,
+    n_edge: int,
+    top_k: int,
+    block_sel: bool = False,
+    with_bound: bool = False,
+):
+    """Exact int32 hit counts for queries of any window count, then the
+    dense-hits finish: the reference's ``candidates_bitmap_impl``, whose
+    per-slot scan accumulates one unpacked table row per query gram slot
+    (duplicate grams count multiply).  Here K2w counts every query's listed
+    rows in one pass over the table (ops.bitmap_matmul.bitmap_hits_wide,
+    sums up to WIDE_MAX_SUM)."""
+    from ..ops.bitmap_matmul import bitmap_hits_wide
+
+    compute_short = compute_short and di.n_short > 0
+    hits = bitmap_hits_wide(query_counts(qslots, bitmap.shape[1]), bitmap)
+    return _dense_hits_finish(
+        di, pt, xt, hits, qtokens, qlens, n_qgrams, use_short, promo_ids,
+        promo_terms, promo_weights, limits, threshold,
+        compute_short=compute_short, n_cand=n_cand, n_edge=n_edge,
+        top_k=top_k, block_sel=block_sel, with_bound=with_bound,
+    )
 
 
 def candidates_bitmap_mxu(

@@ -20,10 +20,12 @@ packed incidence, K1 hit counts with the integer h* finish and a
 selection-only retry on the retained hits (uniform weights), or K1/K2 with
 the blockmax or dense-hits finish (any weights), and for batches of at most
 GATHER_BATCH queries optionally the same over the batch's own gram rows
-(the gathered-row route); for indexes whose packed incidence is over
-budget, the bucket sketch with exact rescoring (K2 over the packed sketch,
-or ``torch._int_mm`` over the unpacked one for queries of more than 127
-gram windows); else the sorted runs (``runs``).  Non-h* routes escalate
+(the gathered-row route), and for queries of more than 127 gram windows
+K2w's int32 hit counts with the dense-hits finish (``bitmap_scan``); for
+indexes whose packed incidence is over budget, the bucket sketch with
+exact rescoring (K2 over the packed sketch, or ``torch._int_mm`` over the
+unpacked one for queries of more than 127 gram windows); else the sorted
+runs (``runs``).  Non-h* routes escalate
 through one full pass at wider budgets.  Rows whose exactness guard still
 fails take the dense path, whose short tier and brute tier run the
 edit-distance kernel K5 and whose postings expansion runs K6.
@@ -40,15 +42,21 @@ from ..config import INT32_MAX, PERFECT_SCORE_CUTOFF, PROMOTED_SCORE
 from ..core import grams as gramlib
 from ..core import text as textlib
 from ..index.build import HostIndex
+from ..ops.bitmap_matmul import WIDE_MAX_SUM
 from .candidates import (
-    _BLK, _f32, candidates_bitmap_gather, candidates_bitmap_mxu,
-    candidates_matmul, candidates_runs, hstar_retry,
+    _BLK, _f32, candidates_bitmap, candidates_bitmap_gather,
+    candidates_bitmap_mxu, candidates_matmul, candidates_runs, hstar_retry,
 )
 from .editdist import dp_match, dp_match_tiered
 from .overlap import gather_hits
 from .sketch import candidates_sketch
 
 _NEG_INF = float("-inf")
+
+# device bytes a lane of a bitmap_scan chunk holds at its peak: the int32
+# hits (4), float32 scores (4) and bounds (4), the float32 product that
+# makes the bounds (4) and the pass mask (1)
+_SCAN_LANE_BYTES = 17
 
 
 def _next_pow2(n: int, lo: int) -> int:
@@ -877,8 +885,11 @@ class SearchEngine:
             fits RUNS_TINY_LANES, on an index of >= SKETCH_MIN_TERMS terms
             without a gram matrix: ``tiny_runs``, the sorted-runs route, and
             no table is built;
-          * the packed table fits BITMAP_BUDGET and queries hold <= 127 gram
-            windows: the bitmap routes.  With BITMAP_GATHER_TMAJ, batches of
+          * the packed table fits BITMAP_BUDGET: the bitmap routes.  Queries
+            of more than 127 gram windows take ``bitmap_scan``, K2w's int32
+            hits and the dense-hits finish (``block_sel`` where the lane
+            space dwarfs n_cand blocks).  Queries of <= 127 gram windows
+            take the kernel routes: with BITMAP_GATHER_TMAJ, batches of
             <= GATHER_BATCH queries whose gram union fits GATHER_ROWS_MAX
             take ``bitmap_gather`` (the gather kernel, then K1 on the
             compact table); the rest ``bitmap_kernel`` over the whole table.
@@ -897,10 +908,10 @@ class SearchEngine:
             the unpacked sketch; both then rescore exactly;
           * none of these: ``runs``, the sorted-runs route.
 
-        Batches of more than 127 windows whose packed table fits - the
-        reference's ``bitmap_scan``, which the port does not carry - go to
-        the dense path unchanged: a routing decision with the same results,
-        independent of the device.
+        The reference's ``bitmap_scan`` takes any window count; K2w counts
+        sums up to WIDE_MAX_SUM, so a batch of wider slot matrices (queries
+        of 64K characters) whose packed table fits goes to the dense path
+        unchanged (``variant`` "dense"): the same results.
         Returns (rows for the dense path, n_cand, selectable lanes, retry
         context)."""
         di = self.host.device
@@ -921,6 +932,7 @@ class SearchEngine:
         hs_kb2 = self.HSTAR_KB2 * hs_scale
         hs_fill = self.HSTAR_FILL if cand_cap == self.CAND_TERMS_FAST else 0
         int8_counts = slots.shape[1] <= 127  # K1/K2 count contract
+        scan_counts = slots.shape[1] <= WIDE_MAX_SUM  # K2w's
         uniform_hstar = self.HSTAR_SEL and self.host.uniform_weights
         gm = self.host.gram_matrix(self.GM_BUDGET)
         tiny_runs = (
@@ -931,13 +943,13 @@ class SearchEngine:
         )
         bm = sk = None
         sk_packed = False
-        bitmap_scan = False  # the reference's bitmap_scan: not ported
+        too_wide = False  # a fitting table, sums past K2w's bound
         if gm is None and not tiny_runs:
-            if int8_counts:
+            if scan_counts:
                 bm = self.host.bitmap_tables(self.BITMAP_BUDGET)
-            elif self.host.bitmap_fits(self.BITMAP_BUDGET):
-                bitmap_scan = True
-            if (bm is None and not bitmap_scan
+            else:
+                too_wide = self.host.bitmap_fits(self.BITMAP_BUDGET)
+            if (bm is None and not too_wide
                     and self.host.n_terms >= self.SKETCH_MIN_TERMS):
                 sk_packed = self.SKETCH_PACKED and int8_counts
                 if sk_packed:
@@ -952,6 +964,18 @@ class SearchEngine:
             n_lanes = short_lanes + tl
             gm_hstar = uniform_hstar and int8_counts
             per_q = 48 * (ts + tl) + 24 * n_edge + (1 << 16)
+        elif bm is not None and not int8_counts:
+            variant = "bitmap_scan"
+            tlp = int(bm[1])
+            n_lanes = short_lanes + tlp
+            bm_fused = False
+            # the reference's budget charges 8 B a lane; the port's hits
+            # and dense-hits finish hold _SCAN_LANE_BYTES a lane at their
+            # peak, so the step is sized from that
+            per_q = (
+                _SCAN_LANE_BYTES * tlp + 24 * n_edge + 48 * short_lanes
+                + (1 << 16)
+            )
         elif bm is not None:
             tlp = int(bm[1])
             n_lanes = short_lanes + tlp
@@ -981,7 +1005,7 @@ class SearchEngine:
                 3 * int(sk[1].shape[0]) + 24 * n_edge + 48 * short_lanes
                 + (1 << 16)
             )
-        elif bitmap_scan:
+        elif too_wide:
             variant = "dense"
             n_lanes = short_lanes + tl
         else:
@@ -1042,6 +1066,7 @@ class SearchEngine:
                 hstar=bool(bm_hstar),
                 pair_dots=False,
             )
+            bm_scan = variant == "bitmap_scan"
             if bm_gather:
                 g_rows, bm_slots, g_gc = gplan
                 self.last_routing["gather_rows"] = int(g_gc)
@@ -1055,6 +1080,10 @@ class SearchEngine:
                 kw = dict(compute_short=compute_short, n_cand=n_cand,
                           n_edge=n_edge, top_k=top_k, block_sel=block_sel,
                           **bm_kw)
+                if bm_scan:
+                    return candidates_bitmap(
+                        di, bm_table, pt, xt, *_args(sl, lim_d), **kw
+                    )
                 if bm_gather:
                     return candidates_bitmap_gather(
                         di, bm_table, rows_d, pt, xt, *_args(sl, lim_d), **kw

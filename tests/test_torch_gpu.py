@@ -1,9 +1,9 @@
 """Tests of the PyTorch port that need a CUDA card: the hand-written K1, K2
-(both table layouts), row-gather, edit-distance (K5), table-gather (K6),
-postings-expansion and K1-probe (P1-P9) kernels against their plain
-versions, and the index build and the search (bitmap-kernel, gathered-row,
-weighted-bitmap, packed and unpacked sketch, gram-matrix and sorted-runs
-routes) on the card against the same on the CPU; ``torch._int_mm`` of the
+(both table layouts), K2w, row-gather, edit-distance (K5), table-gather
+(K6), postings-expansion and K1-probe (P1-P9) kernels against their plain
+versions, and the index build and the search (bitmap-kernel, bitmap-scan,
+gathered-row, weighted-bitmap, packed and unpacked sketch, gram-matrix and
+sorted-runs routes) on the card against the same on the CPU; ``torch._int_mm`` of the
 unpacked sketch against the CPU product; save/load and the C ABI on the
 card.  They import no jax, so on a machine
 with a card and no jax they run with
@@ -967,3 +967,105 @@ def test_bench_run_config_on_cuda(cuda):
     assert not any(v for k, v in launches.items() if k.endswith("_REF_CALLS"))
     assert out["n_keys"] == 3000 and out["qps"] > 0
     assert out["single_query_p50_ms"] > 0
+
+
+def _wide_qcnt(rng, b, gp, total):
+    """(B, gp) multiplicities, every row summing to ``total``: even rows over
+    min(gp, total) columns (multiplicity 1 where gp allows), odd rows over
+    at most 24 (higher multiplicities), every third row one column of
+    multiplicity ``total`` (a repeated-character query)."""
+    q = np.zeros((b, gp), np.int32)
+    for r in range(b):
+        k = 1 if r % 3 == 2 else min(gp, total) if r % 2 == 0 else min(gp, 24, total)
+        cols = rng.choice(gp, size=k, replace=False)
+        cuts = np.sort(rng.choice(np.arange(1, total), k - 1, replace=False))
+        q[r, cols] = np.diff(np.concatenate([[0], cuts, [total]]))
+    return torch.from_numpy(q)
+
+
+@pytest.mark.parametrize("total", [127, 128, 255, 256, 511, 512])
+@pytest.mark.parametrize("gp", [128, 2816, 8192])
+@pytest.mark.parametrize("b", [1, 33, 64])
+def test_cuda_k2w_matches_plain_version(cuda, b, gp, total):
+    """K2w bit for bit against its plain version at ragged batches and at
+    the edges of its counter slices (8 up to 255, 9 up to 511, 10 at 512)."""
+    rng = np.random.default_rng(b * 7919 + gp + total)
+    planes = torch.from_numpy(
+        rng.integers(0, 256, size=(3, gp, pbm.BLKB), dtype=np.uint8).view(np.int8)
+    ).to(cuda)
+    q = _wide_qcnt(rng, b, gp, total).to(cuda)
+    launches, refs = pbm.K2W_LAUNCHES, pbm.K2W_REF_CALLS
+    hits = pbm.bitmap_hits_wide(q, planes)
+    want = pbm.bitmap_hits_wide_ref(q, planes)
+    torch.cuda.synchronize()
+    assert (pbm.K2W_LAUNCHES, pbm.K2W_REF_CALLS) == (launches + 1, refs)
+    assert hits.dtype == torch.int32 and torch.equal(hits, want)
+
+
+def test_cuda_k2w_every_bit_set(cuda):
+    """A table with every bit set: every count is the query's sum, up to the
+    bound of 65,535 (16 slices), through each way a row enters the
+    counters."""
+    planes = torch.full((2, 2816, pbm.BLKB), -1, dtype=torch.int8, device=cuda)
+    q = torch.zeros((6, 2816), dtype=torch.int32)
+    q[0, 7] = pbm.WIDE_MAX_SUM
+    q[1, :2816] = 1
+    q[2, 100:104] = torch.tensor([40000, 20000, 5000, 535])
+    q[3, 3:12] = 1
+    q[4, :1000] = 1
+    q[4, 1000:1010] = 300
+    q[5, 2000] = 256
+    q = q.to(cuda)
+    hits = pbm.bitmap_hits_wide(q, planes)
+    torch.cuda.synchronize()
+    assert torch.equal(hits, q.sum(1, dtype=torch.int32)[:, None].expand_as(hits))
+
+
+def test_cuda_k2w_contracts(cuda):
+    """K2w raises past its sum bound, on negative multiplicities and on a
+    row-major table; an empty batch launches nothing."""
+    planes = torch.zeros((2, 128, pbm.BLKB), dtype=torch.int8, device=cuda)
+    q = torch.zeros((2, 128), dtype=torch.int32, device=cuda)
+    q[1, 5] = pbm.WIDE_MAX_SUM + 1
+    with pytest.raises(ValueError):
+        pbm.bitmap_hits_wide(q, planes)
+    q[1, 5] = -1
+    with pytest.raises(ValueError):
+        pbm.bitmap_hits_wide(q, planes)
+    with pytest.raises(ValueError):
+        pbm.bitmap_hits_wide(q[:, :128].abs(), pbm.from_tile_major(planes).contiguous())
+    launches = pbm.K2W_LAUNCHES
+    out = pbm.bitmap_hits_wide(q[:0], planes)
+    assert out.shape == (0, 2 * pbm.TILE_LANES) and pbm.K2W_LAUNCHES == launches
+
+
+def test_scan_route_on_cuda_matches_cpu(cuda):
+    """Queries of more than 127 gram windows on an index whose packed table
+    fits: ``bitmap_scan`` (K2w + the dense-hits finish) on the card equals
+    the same route on the CPU and the dense path."""
+    from stringsearchlib_tpu_torch.tools import bench as pbench
+
+    words = pbench._product_names(3000, seed=3)
+    engines = []
+    for dev in ("cpu", cuda):
+        eng = SearchEngine(build_index(words, 1, None, IndexConfig(), device=dev))
+        eng.GM_BUDGET = 0
+        eng.CAND_MIN_TERMS = 0
+        eng.RUNS_TINY_BATCH = 0
+        engines.append(eng)
+    rng = random.Random(17)
+    queries = []
+    for i in range(20):
+        q = pbench._mutate(rng, rng.choice(words))
+        while len(q) < 131:
+            q += " " + (q.split(" ")[0] if i % 4 == 3 else pbench._mutate(rng, rng.choice(words)))
+        queries.append(q[:254])
+    queries += ["1" * 300, "0" * 140]
+    launches, refs = pbm.K2W_LAUNCHES, pbm.K2W_REF_CALLS
+    got = engines[1].search_batch(queries, 0.1, 20, mode="candidates")
+    assert engines[1].last_routing["variant"] == "bitmap_scan"
+    assert pbm.K2W_LAUNCHES > launches and pbm.K2W_REF_CALLS == refs
+    assert got == engines[0].search_batch(queries, 0.1, 20, mode="candidates")
+    dense = engines[1].search_batch(queries, 0.1, 20, mode="dense")
+    for g, d in zip(got, dense):
+        assert sorted(zip(g[1], g[0])) == sorted(zip(d[1], d[0]))
