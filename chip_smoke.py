@@ -40,7 +40,8 @@ Drives the port's candidate paths on one CUDA card, through
     the h* finish over a 47,104-row packed table;
   * queries of more than 127 gram windows on the 10M-key index and on
     ``wide_100k_g2``'s: the bitmap scan route (K2w's int32 hits and the
-    dense-hits finish);
+    dense-hits finish), up to pasted documents of 66,000-100,000
+    characters (K2w in parts of at most 65,535 a row, one launch a part);
   * the port's bench entry point (``tools/bench.py``) on ``wide_100k_g2``.
 
 It also launches the K1 probes P1-P9 (``ops.probes``, the port of the
@@ -49,19 +50,19 @@ table is resident.
 
 Phases, each printing one line with its seconds; any failure raises, so the
 script exits non-zero and prints no final ``ok`` line.  They run in the
-order 1-3, 15, 4-5, 21, 6, 29, 11-12, 23-24, 7-10, 22, 16, 18-19, 13-14,
-17, 20, 25-26, 27-28:
+order 1-3, 15, 4-5, 21, 6, 29-30, 11-12, 23-24, 7-10, 22, 16, 18-19,
+13-14, 17, 20, 25-26, 27-28:
 
   1. device: a CUDA card is required; prints nvidia-smi's name and power
      limit;
   2. build: compiles the CUDA sources in csrc/ with nvcc (one process per
      source, started together) and the native index builder with g++, and
      says whether the native builder loaded; prints ptxas's registers and
-     spills of K5's instances, of K6's expansion kernel and of the probe
-     kernels' instances and of K6's gather kernel (per index type), and
-     fails on a spill in K5's register instances,
-     the expansion kernel, a gather kernel or a probe instance, or on a
-     missing instance;
+     spills of K1, K2 (both layouts) and K2w, of K5's instances, of K6's
+     expansion kernel and of the probe kernels' instances and of K6's
+     gather kernel (per index type), and fails on a spill in any of them
+     but K5's scratch kernel, on K2w above K2W_MAX_REGISTERS (117)
+     registers, or on a missing instance;
   3. K1 against its plain PyTorch version on random tables (every bit set
      somewhere, bit 7 included; multiplicities summing to 31 and to 127)
      and on the edges of its bit-sliced counters (``_edge_cases``:
@@ -91,7 +92,9 @@ order 1-3, 15, 4-5, 21, 6, 29, 11-12, 23-24, 7-10, 22, 16, 18-19, 13-14,
   9. K2 on the real sketch table with real queries' bucket counts at
      B = 256 and at the engine's step, bit-identical to the plain version;
      timed as in phase 5 (``_hits_kernel_alone``: the flushed time settles
-     a reading under the byte bound);
+     a reading under the byte bound); the library call at B = 256,
+     ``int_mm_counts`` over the sketch's unpacked incidence
+     (``hits_ab.library_case``), its hits equal to K2's;
   10. 2-D exactness: 32 of those queries again through the dense path, the
      same tie groups;
   11. the row gather against its plain version on random tables: row-major
@@ -115,7 +118,10 @@ order 1-3, 15, 4-5, 21, 6, 29, 11-12, 23-24, 7-10, 22, 16, 18-19, 13-14,
      K2 launches; 32 queries against the dense path; then phase 29's check
      on its index: 64 joined queries of more than 127 windows, every pass
      bitmap_scan without block_sel, K2w launches, no plain version, all 64
-     against the dense path;
+     against the dense path; and phase 30's: 3 pasted documents of
+     66,000-100,000 characters and a run of 70,000 of one character, every
+     pass bitmap_scan, K2w at least two launches per chunk, every result
+     equal to the dense path's and to the port's oracle's;
   15. K5 against its plain version on random cases (``K5_CASES``): a
      20k-term short tier at B = 256, a 2M-term long tier at B = 1, wide
      int32 tokens, W = 200 at Qp 32, 33, 65 (uint8 and int32), 129, 130
@@ -242,7 +248,22 @@ order 1-3, 15, 4-5, 21, 6, 29, 11-12, 23-24, 7-10, 22, 16, 18-19, 13-14,
      one at a time on both paths, in turns; K2w per call and in device time
      (queued, L2 flushed) at the route's step beside its bound; step, rows
      sent to the retry pass and to the dense path, each path's peak
-     memory, a traced batch.
+     memory, a traced batch;
+  30. queries past 65,535 gram windows on the 10M-key index (after phase
+     29, no rebuild): 8 pasted documents (``tools.bench.documents``:
+     mutated headline names joined by spaces, 66,000-100,000 characters,
+     ``random.Random(30)``) and a run of 70,000 "1"s, at
+     SCAN_DOC_THRESHOLD (0.03), top-100; as a
+     batch (one warm-up, three timed) and one at a time; every pass
+     bitmap_scan, K2w at least two launches per chunk, no plain version,
+     every K2w call bit-identical to its plain version, every document with
+     results; one chunk's hits equal to ``int_mm_counts`` over the unpacked
+     incidence (28.24 GB, ``hits_ab.unpack_incidence``), which also times
+     the library call on phase 5's B = 256 counts (K1) and phase 29's chunk
+     (K2w); q/s, the singles' p50/p90, K2w per part (queued device ms
+     beside each part's bound), the host's gram extraction and slot
+     lookup, the rows sent to the dense path and their time, a traced
+     batch (busy, idle, launches, each K2w launch).
 
 The line before the last is a JSON object describing the TPU kernels'
 ports (K1-K6, K2w, the postings expansion, P1-P9); the last line is ``{"ok":
@@ -468,6 +489,7 @@ def _trace(run) -> dict:
     k1 = sum(v for k, v in by_name.items() if _kernel_of(k) == "k1")
     k2 = sum(v for k, v in by_name.items() if _kernel_of(k) == "k2")
     k2w = sum(v for k, v in by_name.items() if _kernel_of(k) == "k2w")
+    k2w_each = [(b - a) / 1e3 for a, b, name in sorted(spans) if _kernel_of(name) == "k2w"]
     g = sum(v for k, v in by_name.items() if _kernel_of(k) == "g")
     k5 = sum(v for k, v in by_name.items() if _kernel_of(k) == "k5")
     k6 = sum(v for k, v in by_name.items() if _kernel_of(k) == "k6")
@@ -478,6 +500,7 @@ def _trace(run) -> dict:
         "k1_ms": k1 / 1e3,
         "k2_ms": k2 / 1e3,
         "k2w_ms": k2w / 1e3,
+        "k2w_launch_ms": k2w_each,
         "gather_ms": g / 1e3,
         "k5_ms": k5 / 1e3,
         "k6_ms": k6 / 1e3,
@@ -1080,8 +1103,11 @@ def _wide_g2_route(threshold, limit, dev):
     t1 = time.perf_counter()
     scan = _scan_wide_g2(engine, words, SCAN_THRESHOLD_WIDE, limit)
     scan["seconds"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    docs = _scan_docs_wide_g2(engine, words, limit)
+    docs["seconds"] = time.perf_counter() - t1
     return {
-        "scan": scan,
+        "scan": scan, "scan_docs": docs,
         "n_keys": len(words), "n_terms": host.n_terms, "n_grams": host.n_grams,
         "build_s": build_s, "table_shape": list(bm[0].shape),
         "qps_median": N_QUERIES_WIDE / med, "rep_s": rep_s, "warmup_s": warm_s,
@@ -1959,25 +1985,46 @@ def _scan_queries(engine, words) -> tuple:
     return listing, repeat, list(SCAN_CHARS)
 
 
-def _wide_kernel_alone(q, table) -> dict:
-    """K2w alone on ``q``'s compacted row lists, made once: device ms per
-    call queued back to back, and with the L2 flushed before each call."""
+def _wide_bare(q, table):
+    """K2w's launches for ``q`` with no read back: the wrapper's parts
+    (``_wide_parts``), each compacted once, here; returns (a function that
+    launches every part into one int32 hits tensor and returns it, {part:
+    a function that launches that part alone, storing for part 0 and
+    adding for the rest}, the list width)."""
     import torch
     from stringsearchlib_tpu_torch.ops import bitmap_matmul as bmm
     from stringsearchlib_tpu_torch.ops import kernels
 
-    width = int((q != 0).sum(1).max())
-    rows, mults = bmm._compact_qcnt(q, width)
+    _, top, width = bmm._wide_sums(q)
+    lists = [bmm._compact_qcnt(p, width) for p in bmm._wide_parts(q, top)]
     b, (ntiles, gp) = q.shape[0], bmm.table_shape(table)
     hits = torch.empty((b, ntiles * bmm.TILE_LANES), dtype=torch.int32, device=q.device)
     launch = kernels.lib("bitmap_hits").bitmap_hits_wide_launch
     stream = torch.cuda.current_stream().cuda_stream
 
+    def part(k):
+        rows, mults = lists[k]
+        err = launch(table.data_ptr(), rows.data_ptr(), mults.data_ptr(), hits.data_ptr(),
+                     b, gp, ntiles, rows.shape[1], int(k > 0), stream)
+        if err:
+            raise RuntimeError(f"K2w launch failed: cuda error {err}")
+
     def run():
-        launch(table.data_ptr(), rows.data_ptr(), mults.data_ptr(), hits.data_ptr(),
-               b, gp, ntiles, rows.shape[1], stream)
+        for k in range(len(lists)):
+            part(k)
+        return hits
+    return run, {k: functools.partial(part, k) for k in range(len(lists))}, width
+
+
+def _wide_kernel_alone(q, table) -> dict:
+    """K2w alone on ``q``'s compacted row lists, made once: device ms per
+    call (every part) queued back to back, and with the L2 flushed before
+    each call; and each part alone, queued (a storing part, then adding
+    ones)."""
+    run, parts, width = _wide_bare(q, table)
     return {"queued_device_ms": _queued_ms(run, 10), "flushed_device_ms": _flushed_ms(run, 10),
-            "list_width": int(rows.shape[1])}
+            "list_width": width, "parts": len(parts),
+            "part_queued_device_ms": [_queued_ms(p, 10) for p in parts.values()]}
 
 
 def _wide_operands(engine, run) -> list:
@@ -2126,7 +2173,7 @@ def _scan_10m(engine, table, words, smi, dev) -> dict:
         "calls_per_batch": len(calls), "call_b": [int(c[0].shape[0]) for c in calls],
         "call_largest_sums": sums, "max_abs_err": err,
     }
-    del calls, q
+    del calls
     torch.cuda.empty_cache()
     k2w["trace"] = _trace(lambda: engine.search_batch(queries, threshold, limit,
                                                        batch_bucket=512))
@@ -2169,8 +2216,240 @@ def _scan_10m(engine, table, words, smi, dev) -> dict:
                       "to_dense": sum(d for _, d, _ in single_groups)},
         "k2w": k2w, "checked_against_dense": len(queries),
         "mean_results": sum(len(k) for k, _ in results) / len(results),
+        "card": smi, "_k2w_counts": q,
+    }
+
+
+N_DOCS = 8  # phase 30's pasted documents on the 10M-key index
+N_DOCS_WIDE = 3  # and on wide_100k_g2's (phase 14)
+DOC_CHARS = (66_000, 100_000)
+# phase 30's run of one character: one trigram 69,998 times, an entry past
+# K2w's per-launch bound
+SCAN_RUN = "1" * 70_000
+# a document's best keys score 0.07-0.1 (hits over ~80,000 windows); wide
+# keys of 4-13 characters ~0.002
+SCAN_DOC_THRESHOLD = 0.03
+SCAN_DOC_THRESHOLD_WIDE = 0.001
+K2W_MAX_REGISTERS = 117  # 16 counter slices, two blocks of 256 threads an SM
+
+
+def _spy_dense(engine, fn):
+    """``fn()`` with the engine's dense chunks timed: (fn's result, [(rows,
+    seconds to a synchronize)] per call of ``_run_dense_chunks``)."""
+    import torch
+
+    calls, orig = [], engine._run_dense_chunks
+
+    def spy(items, *a):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = orig(items, *a)
+        torch.cuda.synchronize()
+        calls.append((len(items), time.perf_counter() - t1))
+        return res
+
+    engine._run_dense_chunks = spy
+    try:
+        return fn(), calls
+    finally:
+        del engine._run_dense_chunks
+
+
+def _wide_part_bounds(q, ntiles: int) -> list:
+    """The bound of each K2w launch on ``q``'s parts: the part's listed rows
+    read once and the int32 hits written once, and read once more where the
+    part adds into them."""
+    from stringsearchlib_tpu_torch.ops import bitmap_matmul as bmm
+
+    hits = int(q.shape[0]) * ntiles * bmm.TILE_LANES * 4
+    out = []
+    for k, part in enumerate(bmm._wide_parts(q, bmm._wide_sums(q)[1])):
+        nbytes, ops = hits_bound(part, ntiles, hits * (2 if k else 1))
+        out.append(_bound(nbytes, ops, PEAK_INT8))
+    return out
+
+
+def _scan_docs_10m(engine, table, words, smi, k1_q, k2w_q) -> dict:
+    """Phase 30: queries past 65,535 gram windows on the resident 10M-key
+    index (no rebuild): ``N_DOCS`` pasted documents of 66,000-100,000
+    characters and ``SCAN_RUN``, at SCAN_DOC_THRESHOLD, top-100, as one
+    batch (a warm-up, then REPS timed) and one at a time.  Every pass
+    bitmap_scan; K2w at least two launches per chunk, no plain version;
+    every K2w call bit-identical to its plain version; every document with
+    results; one chunk's hits equal to ``int_mm_counts`` over the unpacked
+    incidence, which also times the library call at K1's (``k1_q``, phase
+    5's B = 256) and K2w's (``k2w_q``, phase 29's chunk) counts and at this
+    chunk's.  Prints q/s, singles' p50/p90, K2w per part (queued device ms
+    beside each part's bound), the host's gram extraction and slot lookup,
+    the rows sent to the dense path with their time, and a traced batch."""
+    import torch
+    from stringsearchlib_tpu_torch.ops import bitmap_matmul as bmm
+
+    import hits_ab
+
+    threshold, limit = SCAN_DOC_THRESHOLD, LIMIT
+    from stringsearchlib_tpu_torch.tools.bench import documents
+
+    docs = documents(words, N_DOCS, random.Random(30), *DOC_CHARS)
+    queries = docs + [SCAN_RUN]
+    windows = [_scan_windows(engine, q) for q in queries]
+    if min(windows) <= (1 << 16) - 2:
+        raise AssertionError(f"phase 30's queries hold {windows} windows")
+
+    def batch():
+        return engine.search_batch(queries, threshold, limit, batch_bucket=512)
+
+    box: dict = {}
+
+    def warm():
+        (box["res"], box["passes"], box["groups"]), box["dense"] = _spy_dense(
+            engine, lambda: _with_groups(engine, batch))
+
+    _reset_counts()
+    t1 = time.perf_counter()
+    calls = _wide_operands(engine, warm)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t1
+    counts = _counts()
+    results = box["res"]
+    route = _scan_passes_ok(box["passes"], box["groups"], "phase 30")
+    sums = [int(q.sum(1).max()) for q, _ in calls]
+    if (not calls or counts["k2w"] < 2 * len(calls) or min(sums) <= bmm.WIDE_MAX_SUM
+            or any(counts[k] for k in counts if k.endswith("_plain"))):
+        raise AssertionError(f"phase 30: counts {counts}, {len(calls)} K2w calls, sums {sums}")
+    _check_results(results, queries, threshold, limit)
+    if not all(r[0] for r in results[:N_DOCS]):
+        raise AssertionError(f"phase 30: a document without results at {threshold}")
+    rep_s = []
+    for _ in range(REPS):
+        t1 = time.perf_counter()
+        batch()
+        torch.cuda.synchronize()
+        rep_s.append(time.perf_counter() - t1)
+    # every K2w call against its plain version
+    err = 0
+    for q, planes in calls:
+        kh, rh = bmm.bitmap_hits_wide(q, planes), bmm.bitmap_hits_wide_ref(q, planes)
+        torch.cuda.synchronize()
+        e = _max_abs_err(kh, rh)
+        err = max(err, e)
+        if e or not torch.equal(kh, rh):
+            raise AssertionError(f"phase 30: K2w differs from its plain version: {e}")
+        del kh, rh
+    torch.cuda.empty_cache()
+    q = calls[0][0]
+    ntiles = int(table.shape[0])
+    parts = _wide_kernel_alone(q, table)
+    part_bounds = _wide_part_bounds(q, ntiles)
+    # the library call: int_mm_counts over the unpacked incidence
+    t1 = time.perf_counter()
+    inc = hits_ab.unpack_incidence(table)
+    torch.cuda.synchronize()
+    unpack_s = time.perf_counter() - t1
+    library = {
+        "chunk": hits_ab.library_case(q, inc, _wide_bare(q, table)[0], 3),
+        "k2w_phase29": hits_ab.library_case(k2w_q, inc, _wide_bare(k2w_q, table)[0], 3),
+        "k1_b256": hits_ab.library_case(k1_q, inc, lambda: bmm.bitmap_hits_bmax(k1_q, table), 3),
+        "unpack_s": unpack_s, "operand_bytes": int(inc.numel()),
+    }
+    del inc
+    torch.cuda.empty_cache()
+    bad = [k for k, v in library.items() if isinstance(v, dict) and not v["equal_to_kernel"]]
+    if bad:
+        raise AssertionError(f"phase 30: int_mm_counts differs from the kernel on {bad}")
+    # the host's gram extraction and slot lookup for the batch
+    items = [(pos, *engine._normalize_query(x), None) for pos, x in enumerate(queries)]
+    t1 = time.perf_counter()
+    slots = engine._prep_rows(items, 1 << 17)[3]
+    prep_ms = (time.perf_counter() - t1) * 1e3
+    trace = _trace(batch)
+    # one at a time
+    engine.search_batch(queries[:1], threshold, limit)
+    single_ms, single_variants = [], set()
+    _reset_counts()
+    for sq in queries:
+        t1 = time.perf_counter()
+        got, passes, _ = _with_groups(engine, lambda: engine.search_batch([sq], threshold, limit))
+        torch.cuda.synchronize()
+        single_ms.append((time.perf_counter() - t1) * 1e3)
+        single_variants |= {rt["variant"] for _, _, rt in passes}
+        if sq != SCAN_RUN and not got[0][0]:
+            raise AssertionError("phase 30: a single document without results")
+    single_counts = _counts()
+    if single_variants != {"bitmap_scan"} or any(
+            single_counts[k] for k in single_counts if k.endswith("_plain")):
+        raise AssertionError(f"phase 30 singles: {single_variants}, {single_counts}")
+    srt = sorted(single_ms)
+    med = sorted(rep_s)[len(rep_s) // 2]
+    return {
+        "n_docs": N_DOCS, "chars": [len(x) for x in queries], "windows": windows,
+        "threshold": threshold, "limit": limit,
+        "qps_median": len(queries) / med, "rep_s": rep_s, "warmup_s": warm_s,
+        "routing": route, "routing_last": dict(engine.last_routing), "counts": counts,
+        "k2w_calls": len(calls), "k2w_call_b": [int(c[0].shape[0]) for c in calls],
+        "k2w_call_largest_sums": sums, "max_abs_err": err,
+        "k2w_parts": {**parts, "part_bound_ms": [b[0] for b in part_bounds],
+                      "listed_rows": int((q != 0).any(0).sum())},
+        "library": library,
+        "dense_rows": [{"rows": n, "s": t} for n, t in box["dense"]],
+        "host_prep_rows_ms": prep_ms, "slots_shape": list(slots.shape),
+        "trace": trace,
+        "single_ms": {"n": len(single_ms), "each": single_ms, "p50": _pct(srt, 0.5),
+                      "p90": _pct(srt, 0.9), "variants": sorted(single_variants),
+                      "counts": single_counts},
+        "mean_results": sum(len(k) for k, _ in results) / len(results),
         "card": smi,
     }
+
+
+def _scan_docs_wide_g2(engine, words, limit) -> dict:
+    """Phase 30's check on wide_100k_g2's index (phase 14 holds it):
+    ``N_DOCS_WIDE`` pasted documents of 66,000-100,000 characters and a run
+    of 70,000 of one character whose bigram the keys repeat; every pass
+    bitmap_scan, K2w at least two launches per chunk and no plain version,
+    every result equal to the port's dense path's and to the port's
+    pure-Python oracle's (tie groups, ``_oracle_agrees``)."""
+    import torch
+    from stringsearchlib_tpu_torch.tools.bench import documents
+    from stringsearchlib_tpu_torch.utils.oracle import OracleIndex
+
+    threshold = SCAN_DOC_THRESHOLD_WIDE
+    # the first character the keys double whose run finds keys (a key's
+    # character may normalize to another)
+    ch = next(c for c in sorted({w[i] for w in words for i in range(len(w) - 1)
+                                 if w[i] == w[i + 1]})
+              if engine.search_batch([c * 100], threshold, limit)[0][0])
+    queries = documents(words, N_DOCS_WIDE, random.Random(31), *DOC_CHARS) + [ch * 70_000]
+    _reset_counts()
+    t1 = time.perf_counter()
+    calls: list = []
+    box: dict = {}
+
+    def run():
+        box["res"], box["passes"], box["groups"] = _with_groups(
+            engine, lambda: engine.search_batch(queries, threshold, limit, batch_bucket=512))
+
+    calls = _wide_operands(engine, run)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t1
+    counts = _counts()
+    route = _scan_passes_ok(box["passes"], box["groups"], "wide_100k_g2 documents")
+    if (counts["k2w"] < 2 * len(calls) or not calls
+            or any(counts[k] for k in counts if k.endswith("_plain"))):
+        raise AssertionError(f"wide_100k_g2 documents: counts {counts}, {len(calls)} calls")
+    results = box["res"]
+    _check_results(results, queries, threshold, limit)
+    dense = engine.search_batch(queries, threshold, limit, batch_bucket=512, mode="dense")
+    _same_groups(results, dense, "wide_100k_g2 documents against the dense path")
+    t1 = time.perf_counter()
+    oracle = OracleIndex(words, row_size=1, gram_size=2, wide=True)
+    for i, x in enumerate(queries):
+        _oracle_agrees(results[i], oracle.search(x, threshold, 0), limit,
+                       f"wide_100k_g2 document {i}")
+    return {"n_queries": len(queries), "chars": [len(x) for x in queries], "run_of": ch,
+            "threshold": threshold, "batch_s": batch_s, "routing": route, "counts": counts,
+            "k2w_calls": len(calls), "oracle_s": time.perf_counter() - t1,
+            "results": [len(r[0]) for r in results]}
 
 
 def _scan_wide_g2(engine, words, threshold, limit) -> dict:
@@ -2696,7 +2975,7 @@ def _sketch_unpacked(engine2, queries2, results2, words2, threshold, limit, dev,
     for pos, q in enumerate(long_q):
         qnorm, qlen = engine2._normalize_query(q)
         items.append((pos, qnorm, qlen, None))
-    _, _, _, slots, _, _, _ = engine2._prep_rows(items, 256)
+    _, _, _, slots, _, _, _, _ = engine2._prep_rows(items, 256)
     if slots.shape[1] <= 127:
         raise AssertionError(f"long queries hold {slots.shape[1]} windows")
     res_b, info_b = run_checked(long_q, "unpacked sketch, long queries")
@@ -2922,7 +3201,7 @@ def _shard_step_times(engine, rt, queries, threshold, limit) -> dict:
     for pos, q in enumerate(queries[:step]):
         qn, ql = engine._normalize_query(q)
         items.append((pos, qn, ql, engine.host.promo_key_ids(qn, ql)[: engine.PROMO_KEYS]))
-    b, qtok, qlens, slots, nqg, use_short, s_cap = engine._prep_rows(items, 32)
+    b, qtok, qlens, slots, nqg, use_short, s_cap, _ = engine._prep_rows(items, 32)
     promo = np.full((b, engine.PROMO_KEYS), -1, np.int32)
     for r, it in enumerate(items):
         promo[r, : it[3].size] = it[3]
@@ -3107,7 +3386,7 @@ def _tp_dp_1m(host, engine, words, queries, results, threshold, limit, dev) -> d
                 qn, ql = eng._normalize_query(q)
                 items.append((pos, qn, ql, None))
             qp = eng._chunk_qp(items)
-            b, qtok, qlens, slots, nqg, use_short, _ = eng._prep_rows(items, qp)
+            b, qtok, qlens, slots, nqg, use_short, _, _ = eng._prep_rows(items, qp)
             shards = eng._leaves()
             qbufs = replicate((qtok, qlens, slots, nqg, use_short), eng.mesh.row_devices)
             tl = int(shards[0]["long_lengths"].shape[0])
@@ -3315,7 +3594,7 @@ def main() -> None:
 
 
 def _phases(args, smi: str, kind: str, count: int, dev, oracle_job, oracle_10m) -> None:
-    """Phases 2-29 and the two result lines, on card ``dev``."""
+    """Phases 2-30 and the two result lines, on card ``dev``."""
     import torch
 
     # -- 2. build ---------------------------------------------------------------
@@ -3344,7 +3623,8 @@ def _phases(args, smi: str, kind: str, count: int, dev, oracle_job, oracle_10m) 
         # expansion, compiled beside the package's kernels
         ptxas = pool.submit(hits_ab._nvcc_jobs, {
             name: os.path.join(_ROOT, "stringsearchlib_tpu_torch", "csrc", f"{name}.cu")
-            for name in ("dp_match", "gather_tables", "probe_hits", "probe_stream")},
+            for name in ("bitmap_hits", "dp_match", "gather_tables", "probe_hits",
+                         "probe_stream")},
             os.path.join(_ROOT, "build", "ptxas"), ("cubin",))
         sos = kernels.build_kernels()
         for name in sos:
@@ -3364,6 +3644,21 @@ def _phases(args, smi: str, kind: str, count: int, dev, oracle_job, oracle_10m) 
     if len(expand_ptxas) != 1 or expand_ptxas[0]["spill_stores"] or expand_ptxas[0]["spill_loads"]:
         raise AssertionError(f"K6's expansion kernel: {expand_ptxas}")
     expand_ptxas = expand_ptxas[0]
+    # K1 / K2 (both layouts) and K2w's storing and adding instances: no
+    # spill; K2w's 16 counter slices in at most K2W_MAX_REGISTERS registers
+    hits_ptxas = {}
+    for fn, (r, st, ld) in hits_ab._ptxas(logs["bitmap_hits"]["ptxas"]).items():
+        key = _kernel_of(fn)
+        if key == "k2w":
+            key += "_add" if "ILb1E" in fn else ""
+        else:
+            key += "_rowmajor" if "rowmajor" in fn else ""
+        hits_ptxas[key] = {"registers": r, "spill_stores": st, "spill_loads": ld}
+    if (set(hits_ptxas) != {"k1", "k2", "k1_rowmajor", "k2_rowmajor", "k2w", "k2w_add"}
+            or any(v["spill_stores"] or v["spill_loads"] for v in hits_ptxas.values())
+            or max(hits_ptxas[k]["registers"] for k in ("k2w", "k2w_add"))
+            > K2W_MAX_REGISTERS):
+        raise AssertionError(f"the hit-count kernels: {hits_ptxas}")
     # K6's gather kernel, per index type
     gather_ptxas = {}
     for fn, (r, st, ld) in hits_ab._ptxas(logs["gather_tables"]["ptxas"]).items():
@@ -3387,6 +3682,7 @@ def _phases(args, smi: str, kind: str, count: int, dev, oracle_job, oracle_10m) 
         raise AssertionError(f"the probe kernels' instances: {probe_ptxas}")
     _phase("build", t0, kernel_sos=",".join(os.path.relpath(p, _ROOT) for p in sos.values()),
            native_builder=native, k5_ptxas=json.dumps(k5_ptxas, separators=(",", ":")),
+           hits_ptxas=json.dumps(hits_ptxas, separators=(",", ":")),
            expand_ptxas=json.dumps(expand_ptxas, separators=(",", ":")),
            gather_ptxas=json.dumps(gather_ptxas, separators=(",", ":")),
            probe_ptxas=json.dumps(probe_ptxas, separators=(",", ":")))
@@ -3515,7 +3811,7 @@ def _phases(args, smi: str, kind: str, count: int, dev, oracle_job, oracle_10m) 
     for pos, q in enumerate(queries):
         qnorm, qlen = engine._normalize_query(q)
         items.append((pos, qnorm, qlen, None))
-    _, _, _, slots, _, _, _ = engine._prep_rows(items, 32)
+    _, _, _, slots, _, _, _, _ = engine._prep_rows(items, 32)
     gp = int(table.shape[1])
     step = int(routing["step"])
     real_err = 0
@@ -3531,6 +3827,8 @@ def _phases(args, smi: str, kind: str, count: int, dev, oracle_job, oracle_10m) 
             raise AssertionError(f"K1 differs on the real table at B={b}: {err}")
         del kh, kb, rh, rb
         torch.cuda.empty_cache()
+        if b == 256:
+            k1_q256 = q  # phase 30 times the library call on these counts
         k_ms = _cuda_ms(lambda: bmm.bitmap_hits_bmax(q, table), 5)
         p_ms = _cuda_ms(lambda: bmm.bitmap_hits_bmax_ref(q, table, chunk_tiles=16), 1)
         hbytes = b * table.shape[0] * bmm.TILE_LANES
@@ -3567,12 +3865,26 @@ def _phases(args, smi: str, kind: str, count: int, dev, oracle_job, oracle_10m) 
     # -- 29. the bitmap scan route: queries of more than 127 windows ---------
     t0 = time.perf_counter()
     scan = _scan_10m(engine, table, words, smi, dev)
+    k2w_q = scan.pop("_k2w_counts")  # phase 30 times the library call on these
     print(json.dumps({"scan_10m": scan}), flush=True)
     scan["seconds"] = time.perf_counter() - t0
     _phase("scan_10m", t0, qps=round(scan["qps_median"], 2),
            dense_qps=round(scan["dense_qps_median"], 2), step=scan["routing"]["steps"],
            k2w_launches=scan["counts"]["k2w"], k2w_device_ms=scan["k2w"]["queued_device_ms"],
            bound_ms=round(scan["k2w"]["bound_ms"], 4))
+
+    # -- 30. queries past 65,535 windows: pasted documents -------------------
+    t0 = time.perf_counter()
+    docs = _scan_docs_10m(engine, table, words, smi, k1_q256, k2w_q)
+    del k1_q256, k2w_q
+    print(json.dumps({"scan_wide": docs}), flush=True)
+    _phase("scan_wide", t0, threshold=docs["threshold"], qps=round(docs["qps_median"], 3),
+           single_p50_ms=round(docs["single_ms"]["p50"], 2),
+           single_p90_ms=round(docs["single_ms"]["p90"], 2),
+           k2w_launches=docs["counts"]["k2w"], k2w_calls=docs["k2w_calls"],
+           k2w_part_device_ms=docs["k2w_parts"]["part_queued_device_ms"],
+           library_k1_b256_ms=round(docs["library"]["k1_b256"]["device_ms"] or -1, 3),
+           dense_rows=docs["dense_rows"])
 
     # -- 11. the row gather vs plain, random tables --------------------------
     t0 = time.perf_counter()
@@ -3717,7 +4029,7 @@ def _phases(args, smi: str, kind: str, count: int, dev, oracle_job, oracle_10m) 
     for pos, q in enumerate(queries2):
         qnorm, qlen = engine2._normalize_query(q)
         items2.append((pos, qnorm, qlen, None))
-    _, _, _, slots2, _, _, _ = engine2._prep_rows(items2, 32)
+    _, _, _, slots2, _, _, _, _ = engine2._prep_rows(items2, 32)
     d_log2 = int(sk[3])
     step2 = int(routing2["step"])
     k2_real_err = 0
@@ -3727,6 +4039,8 @@ def _phases(args, smi: str, kind: str, count: int, dev, oracle_job, oracle_10m) 
             bucket_of(torch.from_numpy(np_tile(slots2, b)).to(dev), d_log2),
             1 << d_log2,
         )
+        if b == 256:
+            k2_q256 = q
         kh = bmm.bitmap_hits(q, inc)
         rh = bmm.bitmap_hits_ref(q, inc)
         torch.cuda.synchronize()
@@ -3750,8 +4064,21 @@ def _phases(args, smi: str, kind: str, count: int, dev, oracle_job, oracle_10m) 
             "max_bucket_mult": int(q.max()),
         }
         torch.cuda.empty_cache()
-    print(json.dumps({"k2_timing": k2_timing, "card": smi}), flush=True)
-    _phase("k2_real_table", t0, max_abs_err=k2_real_err, step=step2)
+    # the library call: int_mm_counts over the sketch's unpacked incidence
+    t1 = time.perf_counter()
+    inc_u = hits_ab.unpack_incidence(inc)
+    torch.cuda.synchronize()
+    k2_library = {**hits_ab.library_case(k2_q256, inc_u,
+                                         lambda: bmm.bitmap_hits(k2_q256, inc), 3),
+                  "unpack_s": time.perf_counter() - t1}
+    del inc_u, k2_q256
+    torch.cuda.empty_cache()
+    if not k2_library["equal_to_kernel"]:
+        raise AssertionError("int_mm_counts differs from K2 on the sketch")
+    print(json.dumps({"k2_timing": k2_timing, "k2_library": k2_library, "card": smi}),
+          flush=True)
+    _phase("k2_real_table", t0, max_abs_err=k2_real_err, step=step2,
+           library_device_ms=k2_library["device_ms"])
 
     # -- 10. 2-D exactness against the dense path --------------------------------
     t0 = time.perf_counter()
@@ -3814,7 +4141,9 @@ def _phases(args, smi: str, kind: str, count: int, dev, oracle_job, oracle_10m) 
     print(json.dumps({"wide_100k_g2": wide, "card": smi}), flush=True)
     _phase("wide_g2", t0, qps=round(wide["qps_median"], 2),
            k2_launches=wide["k2_launches"], scan_k2w_launches=wide["scan"]["counts"]["k2w"],
-           scan_s=round(wide["scan"]["seconds"], 2))
+           scan_s=round(wide["scan"]["seconds"], 2),
+           docs_k2w_launches=wide["scan_docs"]["counts"]["k2w"],
+           docs_s=round(wide["scan_docs"]["seconds"], 2))
     torch.cuda.empty_cache()
 
     # -- 17. wide_100k_g3: the sorted runs -------------------------------------------
@@ -3900,7 +4229,9 @@ def _phases(args, smi: str, kind: str, count: int, dev, oracle_job, oracle_10m) 
         "plain_ms": timing[256]["plain_ms"],
         "bound_ms": timing[256]["bound_ms"],
         "bound_by": timing[256]["bound_by"],
-        "library_ms": None,
+        "library_ms": docs["library"]["k1_b256"]["ms"],
+        "library_device_ms": docs["library"]["k1_b256"]["device_ms"],
+        "library": "candidates.int_mm_counts (torch._int_mm) over the unpacked incidence",
         "rich_1m": {"launches": rich["counts"]["k1"], "gp_rows": int(rich["table_shape"][1]),
                     **{f"b{b}": v for b, v in rich["k1"].items()}},
     }, {
@@ -3915,15 +4246,19 @@ def _phases(args, smi: str, kind: str, count: int, dev, oracle_job, oracle_10m) 
         "plain_ms": k2_timing[256]["plain_ms"],
         "bound_ms": k2_timing[256]["bound_ms"],
         "bound_by": k2_timing[256]["bound_by"],
-        "library_ms": None,
+        "library_ms": k2_library["ms"],
+        "library_device_ms": k2_library["device_ms"],
+        "library": "candidates.int_mm_counts (torch._int_mm) over the unpacked sketch",
     }, {
         "name": "bitmap_hits_wide",
         "route": "cuda",
         "source": src,
         # no Pallas kernel: the reference's bitmap_scan hits are an XLA scan
         "replaces": "stringsearchlib_tpu/search/candidates.py:1048",
-        "launches": scan["counts"]["k2w"],
-        "max_abs_err": scan["k2w"]["max_abs_err"],
+        "launches": scan["counts"]["k2w"] + docs["counts"]["k2w"],
+        "launches_by_path": {"scan_10m": scan["counts"]["k2w"],
+                             "scan_wide": docs["counts"]["k2w"]},
+        "max_abs_err": max(scan["k2w"]["max_abs_err"], docs["max_abs_err"]),
         "ms": scan["k2w"]["ms"],
         "device_ms": scan["k2w"]["queued_device_ms"],
         "flushed_device_ms": scan["k2w"]["flushed_device_ms"],
@@ -3931,8 +4266,18 @@ def _phases(args, smi: str, kind: str, count: int, dev, oracle_job, oracle_10m) 
         "plain_ms": scan["k2w"]["plain_ms"],
         "bound_ms": scan["k2w"]["bound_ms"],
         "bound_by": scan["k2w"]["bound_by"],
-        "library_ms": None,
-        "wide_100k_g2_launches": wide["scan"]["counts"]["k2w"],
+        "library_ms": docs["library"]["k2w_phase29"]["ms"],
+        "library_device_ms": docs["library"]["k2w_phase29"]["device_ms"],
+        "library": "candidates.int_mm_counts (torch._int_mm per base-128 digit) over "
+                   "the unpacked incidence",
+        "wide_100k_g2_launches": wide["scan"]["counts"]["k2w"] + wide["scan_docs"]["counts"]["k2w"],
+        "scan_wide": {"launches": docs["counts"]["k2w"], "calls": docs["k2w_calls"],
+                      "max_abs_err": docs["max_abs_err"], **docs["k2w_parts"],
+                      # the document chunk's library call, beside phase 29's above
+                      "library_chunk": {k: docs["library"]["chunk"][k] for k in (
+                          "ms", "device_ms", "kernel_ms", "kernel_device_ms",
+                          "equal_to_kernel")}},
+        "ptxas": {k: hits_ptxas[k] for k in ("k2w", "k2w_add")},
     }] + [{
         "name": name,
         "route": "cuda",

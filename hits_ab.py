@@ -37,8 +37,40 @@ taken: an upper estimate).
 Writes every reading to ``--out`` (default ``build/hits_ab/hits_ab.json``)
 and prints one JSON line per table and B.
 
+``--library`` times the one PyTorch call that computes the same hits
+instead (no other body): ``int_mm_counts`` (``torch._int_mm``, one call per
+base-128 digit of the multiplicities) over the table's unpacked 0/1
+incidence, held column-major as an (N, Gp) int8 tensor passed as ``.t()``
+(``unpack_incidence``, untimed; freed before the next case), at each
+kernel's own shapes: K1 on the 10M-key table at B = 256 and 512, K2 on the
+2-D index's packed sketch at B = 256 and 512, K2w on the 10M-key table at
+B = 32 on chip_smoke.py phase 29's first chunk, and K1 on rich_1m's table
+at B = 256 where its unpacked operand fits.  Each case: the call's hits
+equal to the kernel's, its ms per call (CUDA events), and device ms (calls
+queued behind a spin kernel, the median of three rounds) beside the
+kernel's, measured alike in the same process, and both bounds.
+
+``--dense`` times the dense path's hit count instead, on the 10M-key
+headline index: ``overlap.gather_hits`` (each row's distinct gram slots
+expanded once, weighted by multiplicity) beside the plain count of one
+posting list per window (K6's expansion of every repeat, a scatter-add of
+ones: the dense path's layout before it counted distinct slots), equal
+hits, ms per call and device ms, on the dense path's chunk of the
+headline's queries (its first ``SearchEngine._batch_cap`` rows) and on the
+same rows with each repeated slot dropped (a batch without repeats).  Then
+one pasted document of 66,000-100,000 characters (``bench.documents``,
+``random.Random(30)``: phase 30's first) at phase 30's threshold and
+limit, each case after a line saying it starts (a run that the time limit
+cuts still says how long the last one ran): the per-window count's
+expansion, ``search_batch(..., mode="dense")`` and ``search_batch`` on its
+route (``bitmap_scan``), each with its lanes, seconds to a synchronize,
+peak device memory over the resident index, and the error where it ran
+out of memory.
+
 Usage:  python3 hits_ab.py [--body NAME=PATH[@SYM] ...] [--unchecked NAME ...]
                            [--keys N] [--rows2d N] [--reps N] [--out PATH]
+        python3 hits_ab.py --library [--keys N] [--rows2d N] [--out PATH]
+        python3 hits_ab.py --dense [--keys N] [--reps N] [--out PATH]
 """
 
 from __future__ import annotations
@@ -235,6 +267,272 @@ def _per_word_row(ins, q) -> dict:
             "whole_per_word_row": whole / max(words, 1)}
 
 
+def unpack_incidence(planes, chunk_bytes: int = 1 << 30):
+    """A tile-major packed table (ntiles, Gp, 512) -> its 0/1 incidence as
+    an (N, Gp) int8 tensor, N = ntiles * 4096 in term order (term j * 4096
+    + p * 512 + k is bit p of byte k of tile j): ``.t()`` is the (Gp, N)
+    column-major right operand of ``candidates.int_mm_counts``."""
+    import torch
+
+    ntiles, gp, blkb = planes.shape
+    out = torch.empty((ntiles * 8 * blkb, gp), dtype=torch.int8, device=planes.device)
+    shifts = torch.arange(8, dtype=torch.uint8, device=planes.device)[None, :, None, None]
+    step = max(1, chunk_bytes // (8 * blkb * gp))
+    for t0 in range(0, ntiles, step):
+        t = planes[t0 : t0 + step].view(torch.uint8).permute(0, 2, 1)  # (nt, 512, Gp)
+        bits = (t[:, None] >> shifts) & 1  # (nt, 8, 512, Gp)
+        out[t0 * 8 * blkb : (t0 + t.shape[0]) * 8 * blkb] = bits.reshape(-1, gp).view(torch.int8)
+        del t, bits
+    return out
+
+
+def _median(xs):
+    xs = sorted(x for x in xs if x is not None)
+    return xs[len(xs) // 2] if xs else None
+
+
+def library_case(q, incidence, kernel, reps: int = 5) -> dict:
+    """``int_mm_counts`` of (B, Gp) counts ``q`` over ``incidence`` ((N, Gp)
+    int8 from ``unpack_incidence``, passed as ``.t()``) against the kernel
+    call ``kernel()`` (its hits, or (hits, block maxima)) on the same
+    counts: whether the call's int32 hits equal the kernel's, ms per call
+    (CUDA events), device ms of both (calls queued behind a spin kernel, the
+    median of three rounds), the call's ``_int_mm`` calls and bound (the
+    operand read and the int32 hits written once, two int8 operations per
+    multiply-add of each digit)."""
+    import torch
+
+    import chip_smoke as cs
+    from stringsearchlib_tpu_torch.search import candidates as pc
+
+    mat = incidence.t()
+    vmax = int(q.max())
+    calls = pc.INT_MM_CALLS
+    got = pc.int_mm_counts(q, mat, vmax)
+    per_call = pc.INT_MM_CALLS - calls
+    want = kernel()
+    want = want[0] if isinstance(want, tuple) else want
+    step = 1 << 20
+    equal = all(torch.equal(got[:, a : a + step], want[:, a : a + step].to(torch.int32))
+                for a in range(0, got.shape[1], step))
+    torch.cuda.synchronize()
+    del got, want
+    torch.cuda.empty_cache()
+    b, (n, gp) = int(q.shape[0]), incidence.shape
+    nbytes = n * gp + 4 * b * n + q.numel() * q.element_size()
+    bound = cs._bound(nbytes, 2.0 * b * gp * n * per_call, cs.PEAK_INT8)
+    return {
+        "b": b, "gp": gp, "n": n, "vmax": vmax, "int_mm_calls": per_call,
+        "equal_to_kernel": equal,
+        "ms": cs._cuda_ms(lambda: pc.int_mm_counts(q, mat, vmax), reps),
+        "device_ms": _median([cs._queued_ms(lambda: pc.int_mm_counts(q, mat, vmax), reps)
+                              for _ in range(3)]),
+        "kernel_ms": cs._cuda_ms(kernel, reps),
+        "kernel_device_ms": _median([cs._queued_ms(kernel, reps) for _ in range(3)]),
+        "bound_ms": bound[0], "bound_by": bound[1], "operand_bytes": n * gp,
+    }
+
+
+def library_main(args, card: str) -> dict:
+    """``--library``: the cases of this script's docstring."""
+    import torch
+
+    import chip_smoke as cs
+    from stringsearchlib_tpu_torch.config import IndexConfig
+    from stringsearchlib_tpu_torch.index import build as buildmod
+    from stringsearchlib_tpu_torch.ops import bitmap_matmul as bmm
+    from stringsearchlib_tpu_torch.search.candidates import query_counts
+    from stringsearchlib_tpu_torch.search.engine import SearchEngine
+    from stringsearchlib_tpu_torch.search.sketch import bucket_of
+    from stringsearchlib_tpu_torch.tools import bench
+
+    import numpy as np
+
+    dev = torch.device("cuda", 0)
+    out: dict = {"card": card}
+
+    def run(tag, table, qs, kernel_for):
+        t0 = time.perf_counter()
+        inc = unpack_incidence(table)
+        torch.cuda.synchronize()
+        unpack_s = time.perf_counter() - t0
+        for name, q in qs.items():
+            out[f"{tag}_{name}"] = {**library_case(q, inc, kernel_for(q, table), args.reps),
+                                    "unpack_s": unpack_s}
+            _log(tag, name, json.dumps(out[f"{tag}_{name}"]))
+        del inc
+        torch.cuda.empty_cache()
+
+    # the headline's 10M-key table: K1 at B = 256 and 512, K2w at phase 29's chunk
+    words = bench._product_names(args.keys, seed=2)
+    host = buildmod.build_index(words, 1, None, IndexConfig(), device=dev)
+    engine = SearchEngine(host)
+    table = host.bitmap_tables(engine.BITMAP_BUDGET)[0]
+    rng = random.Random(7)
+    queries = [bench._mutate(rng, rng.choice(words)) for _ in range(cs.N_QUERIES)]
+    items = [(pos, *engine._normalize_query(q), None) for pos, q in enumerate(queries)]
+    slots = engine._prep_rows(items, 32)[3]
+    gp = int(table.shape[1])
+    run("k1", table, {f"b{b}": query_counts(torch.from_numpy(cs.np_tile(slots, b)).to(dev), gp)
+                      for b in (256, 512)}, lambda q, t: lambda: bmm.bitmap_hits_bmax(q, t))
+    scan = sum(cs._scan_queries(engine, words), [])
+    calls = cs._wide_operands(engine, lambda: engine.search_batch(
+        scan, cs.SCAN_THRESHOLD, cs.LIMIT, batch_bucket=512))
+    # the wrapper reads one value back, so the kernel's side is its bare launches
+    run("k2w", table, {f"b{int(calls[0][0].shape[0])}": calls[0][0]},
+        lambda q, t: cs._wide_bare(q, t)[0])
+    del engine, host, table, calls, words
+    torch.cuda.empty_cache()
+
+    # the 2-D index's packed sketch: K2 at B = 256 and 512
+    rows2 = bench._product_names(args.rows2d, seed=5)
+    descs = bench._rich_names(args.rows2d, seed=6)
+    words2 = [x for kv in zip(rows2, descs) for x in kv]
+    host2 = buildmod.build_index(words2, 2, np.tile(np.array([1.0, 0.4]), args.rows2d),
+                                 IndexConfig(), device=dev)
+    engine2 = SearchEngine(host2)
+    sk = host2.sketch_tables(engine2.SKETCH_BUDGET)
+    inc2, d_log2 = sk[0], int(sk[3])
+    rng = random.Random(7)
+    queries2 = [bench._mutate(rng, rng.choice(words2)) for _ in range(cs.N_QUERIES_2D)]
+    items2 = [(pos, *engine2._normalize_query(q), None) for pos, q in enumerate(queries2)]
+    slots2 = engine2._prep_rows(items2, 32)[3]
+    run("k2", inc2, {f"b{b}": query_counts(
+        bucket_of(torch.from_numpy(cs.np_tile(slots2, b)).to(dev), d_log2), 1 << d_log2)
+        for b in (256, 512)}, lambda q, t: lambda: bmm.bitmap_hits(q, t))
+    del engine2, host2, inc2, sk, words2, rows2, descs
+    torch.cuda.empty_cache()
+
+    # rich_1m's table (47,104 rows): K1 at B = 256, where the operand fits
+    words3 = bench._rich_names(cs.N_1M, seed=1)
+    host3 = buildmod.build_index(words3, 1, None, IndexConfig(), device=dev)
+    engine3 = SearchEngine(host3)
+    table3 = host3.bitmap_tables(engine3.BITMAP_BUDGET)[0]
+    rng = random.Random(7)
+    queries3 = [bench._mutate(rng, rng.choice(words3)) for _ in range(256)]
+    items3 = [(pos, *engine3._normalize_query(q), None) for pos, q in enumerate(queries3)]
+    slots3 = engine3._prep_rows(items3, 32)[3]
+    need = table3.numel() * 8 + 256 * table3.shape[0] * 4096 * 5
+    free = torch.cuda.mem_get_info()[0]
+    if need < free:
+        run("rich_1m_k1", table3, {"b256": query_counts(
+            torch.from_numpy(slots3).to(dev), int(table3.shape[1]))},
+            lambda q, t: lambda: bmm.bitmap_hits_bmax(q, t))
+    else:
+        out["rich_1m_k1_b256"] = {"not_measured": f"needs {need} bytes, {free} free"}
+    return out
+
+
+def _per_window_hits(gram_ptr, gram_terms, slots, n_long: int, s_cap: int):
+    """The dense path's hit count with one posting list per window: every
+    window's postings expanded (K6) into ``s_cap`` lanes, a scatter-add of
+    ones."""
+    import torch
+
+    from stringsearchlib_tpu_torch.ops.vgather import expand_postings
+
+    ids = expand_postings(gram_ptr, gram_terms, slots, s_cap, n_long).long()
+    hits = torch.zeros((slots.shape[0], n_long + 1), dtype=torch.int32, device=slots.device)
+    hits.scatter_add_(1, ids, torch.ones_like(ids, dtype=torch.int32))
+    return hits[:, :n_long]
+
+
+def _attempt(out: dict, name: str, fn, base: int, **info) -> None:
+    """``out[name]``: ``fn()`` timed to a synchronize, its peak device memory
+    over ``base`` and what it returns (a count of results or of terms hit),
+    or the out-of-memory error."""
+    import torch
+
+    _log(json.dumps({"case": name, "start": True, **info}))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        n = fn()
+        torch.cuda.synchronize()
+        out[name] = {"s": time.perf_counter() - t0, "results": n,
+                     "peak_over_index_bytes": torch.cuda.max_memory_allocated() - base, **info}
+    except torch.cuda.OutOfMemoryError as e:  # the reading: this layout cannot serve it
+        out[name] = {"s": time.perf_counter() - t0, "error": str(e).split("\n")[0], **info}
+    _log(json.dumps({"case": name, **out[name]}))
+    torch.cuda.empty_cache()
+
+
+def dense_main(args, card: str) -> dict:
+    """``--dense``: the cases of this script's docstring."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from stringsearchlib_tpu_torch.config import IndexConfig
+    from stringsearchlib_tpu_torch.index import build as buildmod
+    from stringsearchlib_tpu_torch.search.engine import SearchEngine, _next_pow2, slot_mass
+    from stringsearchlib_tpu_torch.search.overlap import gather_hits
+    from stringsearchlib_tpu_torch.tools import bench
+
+    dev = torch.device("cuda", 0)
+    out: dict = {"card": card}
+    words = bench._product_names(args.keys, seed=2)
+    engine = SearchEngine(buildmod.build_index(words, 1, None, IndexConfig(), device=dev))
+    engine.host.bitmap_tables(engine.BITMAP_BUDGET)
+    di, lens = engine.host.device, engine.host.host_posting_lens
+
+    rng = random.Random(7)
+    queries = [bench._mutate(rng, rng.choice(words)) for _ in range(cs.N_QUERIES)]
+    items = [(pos, *engine._normalize_query(q), None) for pos, q in enumerate(queries)]
+    items = items[: engine._batch_cap(len(items))]  # the dense path's chunk
+    slots = engine._prep_rows(items, 32)[3][: len(items)]
+    srt = np.sort(slots, axis=1)
+    dup = np.zeros(srt.shape, bool)
+    dup[:, 1:] = (srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)
+    for name, s in (("headline", slots), ("headline_no_repeats", np.where(dup, -1, srt))):
+        full, distinct = slot_mass(lens, s)
+        st = torch.from_numpy(np.ascontiguousarray(s)).to(dev)
+        s_cap, d_cap = _next_pow2(max(full, 1), 1024), _next_pow2(max(distinct, 1), 1024)
+
+        def new(st=st, d_cap=d_cap):
+            return gather_hits(di.gram_ptr, di.gram_terms, st, di.n_long, d_cap)
+
+        def old(st=st, s_cap=s_cap):
+            return _per_window_hits(di.gram_ptr, di.gram_terms, st, di.n_long, s_cap)
+
+        s_np = np.sort(s, axis=1)
+        out[name] = {
+            "rows": int(s.shape[0]),
+            "rows_with_repeats": int(((s_np[:, 1:] == s_np[:, :-1]) & (s_np[:, 1:] >= 0))
+                                     .any(1).sum()),
+            "s_cap": s_cap, "d_cap": d_cap, "equal": bool(torch.equal(new(), old())),
+            "ms": cs._cuda_ms(new, args.reps),
+            "device_ms": _median([cs._queued_ms(new, args.reps) for _ in range(3)]),
+            "per_window_ms": cs._cuda_ms(old, args.reps),
+            "per_window_device_ms": _median([cs._queued_ms(old, args.reps) for _ in range(3)]),
+        }
+        _log(name, json.dumps(out[name]))
+        torch.cuda.empty_cache()
+
+    doc = bench.documents(words, 1, random.Random(30))[0]
+    item = (0, *engine._normalize_query(doc), None)
+    qp = _next_pow2(item[2], 16)
+    b, _, _, slots, nqg, _, s_cap, d_cap = engine._prep_rows([item], qp)
+    st = torch.from_numpy(slots).to(dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    out["document"] = {"chars": len(doc), "windows": int(nqg[0]), "qp": qp, "rows": b,
+                       "s_cap": s_cap, "d_cap": d_cap, "resident_bytes": base}
+    _log(json.dumps(out["document"]))
+
+    def search(**kw):
+        return len(engine.search_batch([doc], cs.SCAN_DOC_THRESHOLD, cs.LIMIT, **kw)[0][0])
+
+    _attempt(out, "document_per_window_hits", lambda: int(_per_window_hits(
+        di.gram_ptr, di.gram_terms, st, di.n_long, s_cap).count_nonzero()), base,
+        lanes=b * s_cap)
+    _attempt(out, "document_dense", lambda: search(mode="dense"), base, lanes=b * d_cap)
+    search()  # the route's warm-up
+    _attempt(out, "document_route", search, base)
+    out["document_route"]["routing"] = dict(engine.last_routing)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--body", action="append", default=[],
@@ -246,6 +544,10 @@ def main() -> None:
     ap.add_argument("--rows2d", type=int, default=1_000_000)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default=os.path.join(_BUILD, "hits_ab.json"))
+    ap.add_argument("--library", action="store_true",
+                    help="time int_mm_counts at each kernel's shapes instead")
+    ap.add_argument("--dense", action="store_true",
+                    help="time the dense path's hit count and one document instead")
     args = ap.parse_args()
 
     import torch
@@ -269,6 +571,17 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     _log(card)
+    if args.library or args.dense:
+        result = (library_main if args.library else dense_main)(args, card)
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1, default=str)
+        ok = all(v.get("equal_to_kernel", True) and v.get("equal", True)
+                 for v in result.values() if isinstance(v, dict))
+        print(json.dumps({"ok": ok, "card": card}))
+        if not ok:
+            raise SystemExit(1)
+        return
     dev = torch.device("cuda", 0)
     result: dict = {"card": card}
 
@@ -367,7 +680,7 @@ def main() -> None:
                 "bound_ms": bound[0], "bound_by": bound[1],
                 "issue": cs._hits_issue(q, int(planes.shape[0])),
                 "sass_new": {fn[-24:]: _per_word_row(ins, q) for fn, ins in new_ins.items()
-                             if "wide" not in fn},
+                             if "wide" not in fn and "add_plane" not in fn},
             }
             _log(tag, b, json.dumps(res[b]))
             torch.cuda.empty_cache()

@@ -73,7 +73,11 @@
 //
 //   hits[b, t] = sum_g qcnt[b, g] * bit(g, t)        int32, term order
 //
-// for sum_g qcnt[b, g] <= 65535, on tile-major tables.  The list's sum picks
+// for sum_g qcnt[b, g] <= 65535 a launch, on tile-major tables; with
+// `accumulate` set a launch adds its counts into the hits already in place,
+// so the wrapper splits larger sums into parts of at most 65535 a row (hits
+// are linear in the multiplicities) and launches once a part, the first
+// storing and the rest accumulating.  The list's sum picks
 // 8..16 counter slices per warp (counts below 2^NS); each group of 8 slices
 // goes through the same 8 x 8 transpose, which gives the low and the high
 // byte of every count, and __byte_perm joins them into 16-bit halves.  What
@@ -82,7 +86,12 @@
 // through the warp's 2 KB of shared memory and written back as 512
 // contiguous bytes per store instruction (the store path of P8's int32
 // epilogue, csrc/probe_hits.cu store_raw32_staged), every 32-byte sector
-// whole.
+// whole; an accumulating launch (its own instance of the kernel, so the
+// storing one keeps its code) reads the hits in place the same way, 512
+// contiguous bytes per load instruction, and adds before it stores, in a
+// helper that is not inlined (inlined, the instance took 122-123
+// registers; so it takes 116, the storing one 117).  More counter slices
+// per launch would not serve: 16 take 117 registers, and 32 would spill.
 //
 // Every offset is size_t.  The kernels allocate nothing and do not
 // synchronise.
@@ -169,12 +178,24 @@ bitmap_hits_rowmajor_kernel(const uint8_t* __restrict__ planes,
                     Strided{(size_t)ntiles * kBlkb, (size_t)kBlkb});
 }
 
+// K2w's accumulating epilogue for one plane: the staged counts (chunk q at
+// q ^ ((q >> 3) & 3), as wide_query writes them) added to the hits in place
+__device__ __noinline__ void add_plane(uint4* dst, const uint4* stage, int lane) {
+#pragma unroll 1
+  for (int c = 0; c < 4; ++c) {
+    const int q = c * 32 + lane;
+    const uint4 v = stage[q ^ ((q >> 3) & 3)];
+    const uint4 h = __ldcs(dst + q);
+    __stcs(dst + q, make_uint4(v.x + h.x, v.y + h.y, v.z + h.z, v.w + h.w));
+  }
+}
+
 // K2w's epilogue for one (query, tile): the lane's 16 terms of each plane
 // (byte k of word i is term 16 * lane + 4 * i + k) as int32 counts, staged
 // through the warp's 2 KB of shared memory.  Chunk q (16 bytes) of a plane
 // sits at q ^ ((q >> 3) & 3), so the lanes' writes (chunks 4 lane + c) and
 // reads (chunks 32 c + lane) are free of bank conflicts.
-template <int NS>
+template <int NS, bool kAcc>
 __device__ __forceinline__ void wide_query(const uint8_t* tile_base,
                                            const int32_t* rp, const int32_t* mp,
                                            int n1, int n, int gp, int lane,
@@ -212,16 +233,22 @@ __device__ __forceinline__ void wide_query(const uint8_t* tile_base,
     }
     __syncwarp();
     uint4* dst = reinterpret_cast<uint4*>(out + (size_t)p * kBlkb);
+    if constexpr (kAcc) {
+      add_plane(dst, stage, lane);
+    } else {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int q = c * 32 + lane;
-      __stcs(dst + q, stage[q ^ ((q >> 3) & 3)]);
+      for (int c = 0; c < 4; ++c) {
+        const int q = c * 32 + lane;
+        __stcs(dst + q, stage[q ^ ((q >> 3) & 3)]);
+      }
     }
   }
 }
 
 // K2w: one block per (layout tile, group of 16 queries), the group fastest,
-// one warp per query at a time, as K1; tile-major tables
+// one warp per query at a time, as K1; tile-major tables; kAcc adds into
+// the hits in place
+template <bool kAcc>
 __global__ void __launch_bounds__(kWarps * 32, 1)
 bitmap_hits_wide_kernel(const uint8_t* __restrict__ planes,
                         const int32_t* __restrict__ rows,
@@ -246,15 +273,15 @@ bitmap_hits_wide_kernel(const uint8_t* __restrict__ planes,
     uint4* st = stage + warp * 128;
     // slices for counts below 2^NS: the bits of the sum, at least 8
     switch (max(8, 32 - __clz(total))) {
-      case 8: wide_query<8>(tile_base, rp, mp, n1, n, gp, lane, out, st); break;
-      case 9: wide_query<9>(tile_base, rp, mp, n1, n, gp, lane, out, st); break;
-      case 10: wide_query<10>(tile_base, rp, mp, n1, n, gp, lane, out, st); break;
-      case 11: wide_query<11>(tile_base, rp, mp, n1, n, gp, lane, out, st); break;
-      case 12: wide_query<12>(tile_base, rp, mp, n1, n, gp, lane, out, st); break;
-      case 13: wide_query<13>(tile_base, rp, mp, n1, n, gp, lane, out, st); break;
-      case 14: wide_query<14>(tile_base, rp, mp, n1, n, gp, lane, out, st); break;
-      case 15: wide_query<15>(tile_base, rp, mp, n1, n, gp, lane, out, st); break;
-      default: wide_query<16>(tile_base, rp, mp, n1, n, gp, lane, out, st); break;
+      case 8: wide_query<8, kAcc>(tile_base, rp, mp, n1, n, gp, lane, out, st); break;
+      case 9: wide_query<9, kAcc>(tile_base, rp, mp, n1, n, gp, lane, out, st); break;
+      case 10: wide_query<10, kAcc>(tile_base, rp, mp, n1, n, gp, lane, out, st); break;
+      case 11: wide_query<11, kAcc>(tile_base, rp, mp, n1, n, gp, lane, out, st); break;
+      case 12: wide_query<12, kAcc>(tile_base, rp, mp, n1, n, gp, lane, out, st); break;
+      case 13: wide_query<13, kAcc>(tile_base, rp, mp, n1, n, gp, lane, out, st); break;
+      case 14: wide_query<14, kAcc>(tile_base, rp, mp, n1, n, gp, lane, out, st); break;
+      case 15: wide_query<15, kAcc>(tile_base, rp, mp, n1, n, gp, lane, out, st); break;
+      default: wide_query<16, kAcc>(tile_base, rp, mp, n1, n, gp, lane, out, st); break;
     }
   }
 }
@@ -318,18 +345,20 @@ extern "C" int bitmap_hits_rowmajor_launch(const void* planes,
                              gp, ntiles, vmax, stream);
 }
 
-// K2w: int32 hits of sums up to 65535 on a tile-major table; lists of any
+// K2w: int32 hits of sums up to 65535 on a tile-major table, stored, or
+// added to the hits in place when `accumulate` is nonzero; lists of any
 // width that is a multiple of 4
 extern "C" int bitmap_hits_wide_launch(const void* planes, const void* rows,
                                        const void* mults, void* hits,
                                        int n_queries, int gp, int ntiles,
-                                       int vmax, void* stream) {
+                                       int vmax, int accumulate, void* stream) {
   if (vmax % 4 || vmax <= 0) return (int)cudaErrorInvalidValue;
   const long long blocks =
       (long long)ntiles * ((n_queries + kQueriesPerBlock - 1) / kQueriesPerBlock);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  bitmap_hits_wide_kernel<<<(unsigned)blocks, kWarps * 32, 0,
-                            reinterpret_cast<cudaStream_t>(stream)>>>(
+  auto kernel = accumulate ? bitmap_hits_wide_kernel<true>
+                           : bitmap_hits_wide_kernel<false>;
+  kernel<<<(unsigned)blocks, kWarps * 32, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(planes), static_cast<const int32_t*>(rows),
       static_cast<const int32_t*>(mults), static_cast<int32_t*>(hits), n_queries,
       gp, ntiles, vmax);

@@ -12,10 +12,12 @@ holds term ``j*8*BLKB + p*BLKB + k``; resident tables are tile-major
 its table layouts, tile-major and row-major ``(Gp, NB)`` (the reference's
 gathered route over row-major tables); on a CUDA tensor each launches its
 entry of the hand-written kernel in ``csrc/bitmap_hits.cu``.
-``bitmap_hits_wide`` (K2w) counts the same hits as int32 for sums up to
-``WIDE_MAX_SUM`` on tile-major tables: the hits of the reference's
-per-slot scan (``candidates_bitmap_impl``, an XLA scan, no Pallas kernel)
-for queries of more than 127 gram windows, from the same source.
+``bitmap_hits_wide`` (K2w) counts the same hits as int32 for any sums
+below 2^31 on tile-major tables, one launch per part of at most
+``WIDE_MAX_SUM`` a row (the first storing, the rest adding into the hits in
+place): the hits of the reference's per-slot scan
+(``candidates_bitmap_impl``, an XLA scan, no Pallas kernel) for queries of
+more than 127 gram windows, from the same source.
 ``gather_rows`` (``out[i] = table[rows[i]]`` along
 the gram axis of either layout) launches ``csrc/gather_rows.cu``, which
 serves both of the reference's TPU gathers: ``gather_rows_dma`` (K3) and
@@ -53,8 +55,11 @@ _SUBS = TILE_LANES // _BMAX_BLK  # 128-term blocks per layout tile (32)
 # row-list width: the <= 127 contract bounds a query's nonzero qcnt columns
 # by 127, and 128 int32 keep every list 16-byte aligned
 _LIST = 128
-# K2w's bound on a query's multiplicity sum: 16 counter slices
+# K2w's bound on a query's multiplicity sum in one launch: 16 counter
+# slices; larger sums take one launch per part of at most this much
 WIDE_MAX_SUM = (1 << 16) - 1
+# bitmap_hits_wide's bound on a row's multiplicity sum: int32 hits
+_WIDE_SUM_LIMIT = 1 << 31
 
 # launches of each CUDA kernel (K1 bitmap_hits_bmax, K2 bitmap_hits, and
 # the row gather G that serves K3 and K4), and calls of its plain version
@@ -231,57 +236,85 @@ def bitmap_hits(qcnt, planes):
     return hits
 
 
-def _check_wide(qcnt, planes) -> int:
+def _wide_sums(qcnt) -> tuple:
+    """(smallest multiplicity, largest row sum, largest count of nonzero
+    columns in a row) of (B, Gp) multiplicities: one read back."""
+    if qcnt.shape[0] == 0:
+        return 0, 0, 0
+    q = qcnt.to(torch.int64)
+    return tuple(torch.stack([q.min(), q.sum(1).max(), (q != 0).sum(1).max()]).tolist())
+
+
+def _wide_parts(qcnt, top: int):
+    """Splits (B, Gp) multiplicities whose largest row sum is ``top`` into
+    K = ceil(top / WIDE_MAX_SUM) parts (at least one) that add up to
+    ``qcnt``, each row of each part summing to at most WIDE_MAX_SUM: part k
+    holds the row's multiplicity mass in [k * WIDE_MAX_SUM, (k + 1) *
+    WIDE_MAX_SUM), columns in order, so an entry larger than the bound
+    spreads over consecutive parts.  Yields (B, Gp) int32 parts."""
+    m = WIDE_MAX_SUM
+    if top <= m:
+        yield qcnt
+        return
+    hi = qcnt.to(torch.int64).cumsum(1)
+    lo = hi - qcnt
+    for k in range(-(-top // m)):
+        yield (hi.clamp(max=(k + 1) * m) - lo.clamp(min=k * m)).clamp(min=0).to(torch.int32)
+
+
+def _check_wide(qcnt, planes) -> tuple:
     """``_check`` for K2w, which takes tile-major tables and multiplicities
-    in [0, WIDE_MAX_SUM] summing to at most WIDE_MAX_SUM per row.  Returns
-    the largest count of nonzero columns in a row (one read back from the
-    device).  Raises on anything else."""
+    >= 0 whose row sums stay below 2^31.  Returns (largest row sum, largest
+    count of nonzero columns in a row), one read back from the device.
+    Raises on anything else."""
     if planes.ndim != 3:
         raise ValueError(f"planes must be tile-major (ntiles, Gp, {BLKB}), got "
                          f"{tuple(planes.shape)}")
     _check(qcnt, planes)
-    if qcnt.shape[0] == 0:
-        return 0
-    q = qcnt.to(torch.int64)
-    lo, top, nnz = torch.stack(
-        [q.min(), q.sum(1).max(), (q != 0).sum(1).max()]
-    ).tolist()
-    if lo < 0 or top > WIDE_MAX_SUM:
-        raise ValueError(f"multiplicities must be >= 0 and sum to <= {WIDE_MAX_SUM} "
-                         f"a row, got min {lo}, largest sum {top}")
-    return nnz
+    lo, top, nnz = _wide_sums(qcnt)
+    if lo < 0 or top >= _WIDE_SUM_LIMIT:
+        raise ValueError(f"multiplicities must be >= 0 and sum to < 2^31 a row, got "
+                         f"min {lo}, largest sum {top}")
+    return top, nnz
 
 
 def bitmap_hits_wide(qcnt, planes):
     """qcnt (B, Gp) multiplicities (integer values >= 0, each row summing to
-    <= WIDE_MAX_SUM, else ValueError)  x  planes, int8 packed incidence,
+    less than 2^31, else ValueError)  x  planes, int8 packed incidence,
     tile-major (ntiles, Gp, BLKB)  ->  hits (B, ntiles*TILE_LANES) int32 in
     term order: K2's hits without the <= 127 bound (the hits of the
     reference's ``candidates_bitmap_impl`` scan).
 
-    CUDA tensors launch the K2w kernel; CPU tensors run the plain version."""
+    CUDA tensors launch the K2w kernel once per part of ``_wide_parts``
+    (the first part stores, each later one adds into the hits in place);
+    CPU tensors run the plain version once per part."""
     global K2W_LAUNCHES, K2W_REF_CALLS
-    width = _check_wide(qcnt, planes)
+    top, width = _check_wide(qcnt, planes)
     if planes.device.type == "cpu":
-        K2W_REF_CALLS += 1
-        return bitmap_hits_wide_ref(qcnt, planes)
+        hits = None
+        for part in _wide_parts(qcnt, top):
+            K2W_REF_CALLS += 1
+            h = bitmap_hits_wide_ref(part, planes)
+            hits = h if hits is None else hits.add_(h)
+        return hits
     b = qcnt.shape[0]
     ntiles, gp = table_shape(planes)
     hits = torch.empty((b, ntiles * TILE_LANES), dtype=torch.int32,
                        device=planes.device)
     if b == 0 or ntiles == 0:
         return hits
-    rows, mults = _cuda_operands(qcnt, planes, width)
     lib = _lib("bitmap_hits")
-    with torch.cuda.device(planes.device):
-        stream = torch.cuda.current_stream(planes.device).cuda_stream
-        err = lib.bitmap_hits_wide_launch(
-            planes.data_ptr(), rows.data_ptr(), mults.data_ptr(),
-            hits.data_ptr(), b, gp, ntiles, rows.shape[1], stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"bitmap_hits_wide kernel launch failed: cuda error {err}")
-    K2W_LAUNCHES += 1
+    for k, part in enumerate(_wide_parts(qcnt, top)):
+        rows, mults = _cuda_operands(part, planes, width)
+        with torch.cuda.device(planes.device):
+            stream = torch.cuda.current_stream(planes.device).cuda_stream
+            err = lib.bitmap_hits_wide_launch(
+                planes.data_ptr(), rows.data_ptr(), mults.data_ptr(),
+                hits.data_ptr(), b, gp, ntiles, rows.shape[1], int(k > 0), stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"bitmap_hits_wide kernel launch failed: cuda error {err}")
+        K2W_LAUNCHES += 1
     return hits
 
 
@@ -309,22 +342,18 @@ def bitmap_hits_bmax_ref(qcnt, planes, chunk_tiles: int = 16):
 
 
 def bitmap_hits_wide_ref(qcnt, planes, chunk_tiles: int = 16):
-    """Plain PyTorch version of ``bitmap_hits_wide``: ``bitmap_hits_ref``'s
-    float32 product, int32 hits.  Exact while each row's sum stays below
-    2^24, float32's integer range (TF32 off for the product)."""
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        return _hits_plain(qcnt, planes, chunk_tiles, torch.int32)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
+    """Plain PyTorch version of ``bitmap_hits_wide``, whole, without the
+    wrapper's split into parts: ``bitmap_hits_ref``'s product in float64,
+    exact since every row sum stays below 2^31 < 2^53, cast to int32."""
+    return _hits_plain(qcnt, planes, chunk_tiles, torch.int32, torch.float64)
 
 
-def _hits_plain(qcnt, planes, chunk_tiles, dtype=torch.int8):
+def _hits_plain(qcnt, planes, chunk_tiles, dtype=torch.int8, acc=torch.float32):
     ntiles, gp = table_shape(planes)
     b = qcnt.shape[0]
-    step = max(1, min(chunk_tiles, _PLAIN_CHUNK_BYTES // (4 * gp * TILE_LANES)))
-    q = qcnt.to(torch.float32)
+    size = torch.finfo(acc).bits // 8
+    step = max(1, min(chunk_tiles, _PLAIN_CHUNK_BYTES // (size * gp * TILE_LANES)))
+    q = qcnt.to(acc)
     hits = torch.empty((b, ntiles * TILE_LANES), dtype=dtype,
                        device=planes.device)
     shifts = torch.arange(8, dtype=torch.uint8, device=planes.device)
@@ -333,9 +362,7 @@ def _hits_plain(qcnt, planes, chunk_tiles, dtype=torch.int8):
         t = tile_columns(planes, t0, t1).view(torch.uint8)  # (Gp, nt, BLKB)
         bits = (t[:, :, None, :] >> shifts[None, None, :, None]) & 1
         m = bits.reshape(gp, (t1 - t0) * TILE_LANES)
-        hits[:, t0 * TILE_LANES : t1 * TILE_LANES] = (
-            q @ m.to(torch.float32)
-        ).to(dtype)
+        hits[:, t0 * TILE_LANES : t1 * TILE_LANES] = (q @ m.to(acc)).to(dtype)
     return hits
 
 

@@ -33,7 +33,8 @@ ARGTYPES = {
         "bitmap_hits_launch": [_P] * 4 + [_I] * 4 + [_P],
         "bitmap_hits_bmax_rowmajor_launch": [_P] * 5 + [_I] * 4 + [_P],
         "bitmap_hits_rowmajor_launch": [_P] * 4 + [_I] * 4 + [_P],
-        "bitmap_hits_wide_launch": [_P] * 4 + [_I] * 4 + [_P],
+        # ..., list width, accumulate, stream
+        "bitmap_hits_wide_launch": [_P] * 4 + [_I] * 5 + [_P],
     },
     "probe_stream": {
         # table, r (or null), out, G, ntiles, row stride, tile stride, stream

@@ -63,6 +63,7 @@ from ..search.engine import (
     _segment_max,
     _term_scores,
     _unpack,
+    slot_mass,
 )
 
 AXIS = "shards"
@@ -759,18 +760,12 @@ class ShardedEngine(SearchEngine):
 
     # -- host-side prep overrides -----------------------------------------
 
-    def _slot_mass(self, rowslots: np.ndarray) -> int:
-        """s_cap source for the sharded engine: the MAX over shards of any
-        query's LOCAL posting total (each shard expands only its own
-        postings; SearchEngine._prep_rows supplies everything else)."""
-        lens2d = self.sx.host_shard_posting_lens
-        if not lens2d.size or not rowslots.size:
-            return 0
-        per = np.where(
-            rowslots[None, :, :] >= 0,
-            lens2d[:, np.clip(rowslots, 0, None)], 0,
-        ).sum(axis=2)
-        return int(per.max())
+    def _slot_mass(self, rowslots: np.ndarray) -> tuple:
+        """Lane bounds for the sharded engine: ``slot_mass`` over each
+        shard's LOCAL posting lengths, the largest over shards (each shard
+        expands only its own postings; SearchEngine._prep_rows supplies
+        everything else)."""
+        return slot_mass(self.sx.host_shard_posting_lens, rowslots)
 
     def _promo_tables_sharded(self, promo_all: np.ndarray):
         """(S, B, PK, PE) promo edge term/weight packs from the host
@@ -916,7 +911,7 @@ class ShardedEngine(SearchEngine):
         )
         top_k = _next_pow2(limit, 16)
 
-        b_all, qtok, qlens, slots, nqg, use_short, s_cap = self._prep_rows(
+        b_all, qtok, qlens, slots, nqg, use_short, s_cap, _ = self._prep_rows(
             items, qp
         )
         compute_short = bool(use_short.any()) and ts_c > 0
@@ -1021,7 +1016,7 @@ class ShardedEngine(SearchEngine):
         pending = []
         for lo in range(0, len(items), bb):
             chunk = items[lo : lo + bb]
-            b, qtok, qlens, slots, nqg, use_short, s_cap = self._prep_rows(
+            b, qtok, qlens, slots, nqg, use_short, _, d_cap = self._prep_rows(
                 chunk, qp
             )
             compute_short = bool(use_short.any()) and self.sx.ts_c > 0
@@ -1031,7 +1026,7 @@ class ShardedEngine(SearchEngine):
             )
             res = sharded_dense_batch_step(
                 self.mesh, shards, qbufs, np.float32(threshold),
-                compute_short=compute_short, brute=False, s_cap=s_cap,
+                compute_short=compute_short, brute=False, s_cap=d_cap,
                 top_k=top_k,
             )
             pending.append((chunk, b, _pack(*res)))
@@ -1058,7 +1053,7 @@ class ShardedEngine(SearchEngine):
         pending = []
         for lo in range(0, len(items), step):
             chunk = items[lo : lo + step]
-            b, qtok, qlens, slots, nqg, _, s_cap = self._prep_rows(
+            b, qtok, qlens, slots, nqg, _, _, d_cap = self._prep_rows(
                 chunk, qp, min_b=min(step, 16)
             )
             qbufs = replicate(
@@ -1068,7 +1063,7 @@ class ShardedEngine(SearchEngine):
             )
             res = sharded_dense_batch_step(
                 self.mesh, shards, qbufs, np.float32(threshold),
-                compute_short=True, brute=True, s_cap=s_cap, top_k=top_k,
+                compute_short=True, brute=True, s_cap=d_cap, top_k=top_k,
             )
             pending.append((chunk, b, _pack(*res)))
         self._emit_dense(pending, limit, out)

@@ -32,6 +32,7 @@ from ..search.engine import (
     _pack,
     _promo_mask,
     _propagate_raw,
+    slot_mass,
 )
 from ..search.overlap import gather_hits
 from . import dist
@@ -173,19 +174,12 @@ class DpTpEngine(dist.ShardedEngine):
                               qp, out):
         return list(items)
 
-    def _slot_mass(self, rowslots: np.ndarray) -> int:
-        """s_cap: max over (term shard, gram shard) of any query's LOCAL
-        posting mass (each cell expands only its own slice)."""
+    def _slot_mass(self, rowslots: np.ndarray) -> tuple:
+        """``slot_mass`` over each (term shard, gram shard) cell's LOCAL
+        posting lengths, the largest over cells (each cell expands only its
+        own slice)."""
         lens3 = self.dx.lens3  # (St, Sg, G)
-        if not lens3.size or not rowslots.size:
-            return 0
-        st, sg, g = lens3.shape
-        flat = lens3.reshape(st * sg, g)
-        per = np.where(
-            rowslots[None, :, :] >= 0,
-            flat[:, np.clip(rowslots, 0, None)], 0,
-        ).sum(axis=2)
-        return int(per.max())
+        return slot_mass(lens3.reshape(-1, lens3.shape[-1]), rowslots)
 
     def _run_dense_chunks(self, items, threshold, limit, batch_bucket, qp,
                           out):
@@ -205,7 +199,7 @@ class DpTpEngine(dist.ShardedEngine):
         pending = []
         for lo in range(0, len(items), batch_bucket):
             chunk = items[lo : lo + batch_bucket]
-            b, qtok, qlens, slots, nqg, use_short, s_cap = self._prep_rows(
+            b, qtok, qlens, slots, nqg, use_short, _, d_cap = self._prep_rows(
                 chunk, qp
             )
             if brute:
@@ -218,7 +212,7 @@ class DpTpEngine(dist.ShardedEngine):
             res = dp_tp_dense_step(
                 self.mesh, shards, post2, qbufs, np.float32(threshold),
                 g_c=self.dx.g_c, compute_short=compute_short or brute,
-                brute=brute, s_cap=s_cap, top_k=top_k,
+                brute=brute, s_cap=d_cap, top_k=top_k,
             )
             pending.append((chunk, b, _pack(*res)))
         self._emit_dense(pending, limit, out)

@@ -40,6 +40,7 @@ from ..search.engine import (
     _propagate_raw,
     _segment_max,
     _unpack,
+    slot_mass,
 )
 from ..search.overlap import gather_hits
 from .dist import Mesh, host_array, make_mesh, replicate, upload
@@ -329,16 +330,11 @@ class GramShardedEngine(SearchEngine):
         )
 
     def _s_cap(self, slots, nn) -> int:
-        """Static lane bound = max over shards of any query's LOCAL posting
-        mass (each shard expands only its own slice)."""
-        lens2d = self.gx.host_shard_posting_lens
-        if nn == 0 or not lens2d.size:
-            return 1024
-        per = np.where(
-            slots[None, :nn, :] >= 0,
-            lens2d[:, np.clip(slots[:nn], 0, None)], 0,
-        ).sum(axis=2)
-        return _next_pow2(max(int(per.max()) if per.size else 0, 1), 1024)
+        """Static lane bound = max over shards of any query's LOCAL distinct
+        posting mass (each shard expands only its own slice;
+        ``overlap.gather_hits``'s lanes)."""
+        d_total = slot_mass(self.gx.host_shard_posting_lens, slots[:nn])[1]
+        return _next_pow2(max(d_total, 1), 1024)
 
     def _search_batch_impl(
         self, queries, threshold, limit, batch_bucket, qp_bucket, mode
@@ -409,7 +405,7 @@ class GramShardedEngine(SearchEngine):
         """Exact candidate path on summed hits; returns guard-failed rows
         for the dense retry."""
         qp = self._chunk_qp(items)
-        b_all, qtok, qlens, slots, nqg, use_short, _ = self._prep_rows(
+        b_all, qtok, qlens, slots, nqg, use_short, _, _ = self._prep_rows(
             items, qp
         )
         s_cap = self._s_cap(slots, len(items))
@@ -472,7 +468,7 @@ class GramShardedEngine(SearchEngine):
                       *, brute):
         qp = self._chunk_qp(items)
         top_k = self._top_k(limit)
-        b_all, qtok, qlens, slots, nqg, use_short, _ = self._prep_rows(
+        b_all, qtok, qlens, slots, nqg, use_short, _, _ = self._prep_rows(
             items, qp
         )
         s_cap = self._s_cap(slots, len(items))

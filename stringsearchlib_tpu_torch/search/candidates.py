@@ -799,8 +799,9 @@ def candidates_bitmap(
     dense-hits finish: the reference's ``candidates_bitmap_impl``, whose
     per-slot scan accumulates one unpacked table row per query gram slot
     (duplicate grams count multiply).  Here K2w counts every query's listed
-    rows in one pass over the table (ops.bitmap_matmul.bitmap_hits_wide,
-    sums up to WIDE_MAX_SUM)."""
+    rows in one pass over the table per part of at most WIDE_MAX_SUM a row
+    (ops.bitmap_matmul.bitmap_hits_wide: any sum below 2^31; a slot matrix
+    of 131,070 windows gives row sums of at most 131,070, two parts)."""
     from ..ops.bitmap_matmul import bitmap_hits_wide
 
     compute_short = compute_short and di.n_short > 0

@@ -42,7 +42,6 @@ from ..config import INT32_MAX, PERFECT_SCORE_CUTOFF, PROMOTED_SCORE
 from ..core import grams as gramlib
 from ..core import text as textlib
 from ..index.build import HostIndex
-from ..ops.bitmap_matmul import WIDE_MAX_SUM
 from .candidates import (
     _BLK, _f32, candidates_bitmap, candidates_bitmap_gather,
     candidates_bitmap_mxu, candidates_matmul, candidates_runs, hstar_retry,
@@ -79,6 +78,21 @@ def _promo_mask(n_keys: int, promo_ids):
     mask = torch.zeros((b, n_keys + 1), dtype=torch.bool, device=promo_ids.device)
     mask.scatter_(1, idx, True)
     return mask[:, :n_keys]
+
+
+def slot_mass(lens: np.ndarray, rowslots: np.ndarray) -> tuple:
+    """(largest posting mass of a row of (B, Q) gram slots, one posting list
+    per window: the runs routes' lanes, sized as the reference sizes them;
+    the same over each row's distinct slots: ``overlap.gather_hits``'s
+    lanes).  ``lens`` (..., G) posting lengths; a leading shard axis takes
+    the largest over shards too."""
+    if not lens.size or not rowslots.size:
+        return 0, 0
+    srt = np.sort(rowslots, axis=1)
+    per = np.where(srt >= 0, lens[..., np.clip(srt, 0, None)], 0)
+    first = np.ones(srt.shape, bool)
+    first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    return int(per.sum(-1).max()), int(np.where(first, per, 0).sum(-1).max())
 
 
 def _term_scores(
@@ -318,10 +332,7 @@ class SearchEngine:
                 self.cfg.wide, self.host.vocab,
             )
             slots[:n_qgrams] = self.host.lookup_gram_slots(ids[0][valid[0]])
-        lens = self.host.host_posting_lens
-        present = slots[slots >= 0]
-        s_total = int(lens[present].sum()) if present.size else 0
-        s_cap = _next_pow2(max(s_total, 1), 128)
+        s_cap = _next_pow2(max(self._slot_mass(slots[None])[1], 1), 128)
         return qtok, qmax, slots, n_qgrams, s_cap
 
     def _top_k(self, limit: int) -> int:
@@ -547,7 +558,7 @@ class SearchEngine:
         pending = []
         for lo in range(0, len(items), step):
             chunk = items[lo : lo + step]
-            b, qtok, qlens, slots, nqg, _, s_cap = self._prep_rows(
+            b, qtok, qlens, slots, nqg, _, _, d_cap = self._prep_rows(
                 chunk, qp, min_b=min(step, 16)
             )
             res = search_brute_batch_device_impl(
@@ -558,7 +569,7 @@ class SearchEngine:
                 self._t(nqg),
                 self._t(self._promo_array(chunk, b)),
                 np.float32(threshold),
-                s_cap=s_cap,
+                s_cap=d_cap,
                 top_k=top_k,
                 long_buckets=self.host.long_dp_buckets(),
             )
@@ -594,7 +605,10 @@ class SearchEngine:
 
     def _prep_rows(self, chunk, qp, min_b: int = 16):
         """Shared host buffers for a chunk of (pos, qnorm, qlen, ...): one
-        batched gram extraction + slot lookup + posting-mass reduce."""
+        batched gram extraction + slot lookup + posting-mass reduce.  Ends
+        with the two lane bounds of ``_slot_mass``: ``s_cap`` (one posting
+        list per window: the runs routes) and ``d_cap`` (one per distinct
+        slot: ``overlap.gather_hits``)."""
         g = self.cfg.gram_size
         qmax = qp - g + 1
         b = _next_pow2(len(chunk), min_b)
@@ -608,7 +622,7 @@ class SearchEngine:
         use_short = (qlens > 0) & (qlens < self.cfg.short_search_cutoff)
         nqg = np.maximum(qlens - (g - 1), 0).astype(np.int32)
         nn = len(chunk)
-        s_total = 0
+        s_total = d_total = 0
         if nn and qmax > 0:
             ids, valid = gramlib.gram_ids(
                 qtok[:nn], qlens[:nn], g, self.cfg.wide, self.host.vocab
@@ -621,19 +635,14 @@ class SearchEngine:
                 )
             m = min(qmax, rowslots.shape[1])
             slots[:nn, :m] = rowslots[:, :m]
-            s_total = self._slot_mass(rowslots)
+            s_total, d_total = self._slot_mass(rowslots)
         s_cap = _next_pow2(max(s_total, 1), 1024)
-        return b, qtok, qlens, slots, nqg, use_short, s_cap
+        d_cap = _next_pow2(max(d_total, 1), 1024)
+        return b, qtok, qlens, slots, nqg, use_short, s_cap, d_cap
 
-    def _slot_mass(self, rowslots: np.ndarray) -> int:
-        """Max postings any one query's gram slots expand to."""
-        lens_tbl = self.host.host_posting_lens
-        if not lens_tbl.size or not rowslots.size:
-            return 0
-        stot = np.where(
-            rowslots >= 0, lens_tbl[np.clip(rowslots, 0, None)], 0
-        ).sum(axis=1)
-        return int(stot.max())
+    def _slot_mass(self, rowslots: np.ndarray) -> tuple:
+        """``slot_mass`` over the index's posting lengths."""
+        return slot_mass(self.host.host_posting_lens, rowslots)
 
     def _promo_tables(self, promo_all: np.ndarray):
         """(b, PK, PE) promo edge term ids (-1 padded) and weights from the
@@ -688,7 +697,7 @@ class SearchEngine:
         pending = []
         for lo in range(0, len(items), batch_bucket):
             chunk = items[lo : lo + batch_bucket]
-            b, qtok, qlens, slots, nqg, use_short, s_cap = self._prep_rows(chunk, qp)
+            b, qtok, qlens, slots, nqg, use_short, _, d_cap = self._prep_rows(chunk, qp)
             res = search_batch_device_impl(
                 self.host.device,
                 self._t(qtok),
@@ -699,7 +708,7 @@ class SearchEngine:
                 self._t(self._promo_array(chunk, b)),
                 np.float32(threshold),
                 compute_short=bool(use_short.any()),
-                s_cap=s_cap,
+                s_cap=d_cap,
                 top_k=top_k,
             )
             pending.append((chunk, b, _pack(*res)))
@@ -769,13 +778,11 @@ class SearchEngine:
             self.CAND_TERMS_FAST,
         )
         n_retry_fast = len(retry)
-        first_variant = self.last_routing["variant"]
         n_sel = None
         if retry and sel_ctx is not None:
             retry = self._hstar_sel_retry(sel_ctx, threshold, limit, out)
             n_sel = len(retry)
-        elif (retry and first_variant != "dense"
-                and n_used < min(self.CAND_TERMS, n_avail)):
+        elif retry and n_used < min(self.CAND_TERMS, n_avail):
             retry, _, _, _ = self._cand_pass(
                 retry, threshold, limit, batch_bucket, qp, out,
                 self.CAND_TERMS,
@@ -908,10 +915,11 @@ class SearchEngine:
             the unpacked sketch; both then rescore exactly;
           * none of these: ``runs``, the sorted-runs route.
 
-        The reference's ``bitmap_scan`` takes any window count; K2w counts
-        sums up to WIDE_MAX_SUM, so a batch of wider slot matrices (queries
-        of 64K characters) whose packed table fits goes to the dense path
-        unchanged (``variant`` "dense"): the same results.
+        ``bitmap_scan`` takes any window count, as the reference's scan
+        does: K2w counts a row's sums in parts of at most WIDE_MAX_SUM, one
+        launch a part, adding into the same int32 hits, so a batch of
+        queries of 64K characters and more keeps the route and needs no
+        second hits buffer.
         Returns (rows for the dense path, n_cand, selectable lanes, retry
         context)."""
         di = self.host.device
@@ -922,7 +930,7 @@ class SearchEngine:
         )
         top_k = _next_pow2(limit, 16)
 
-        b_all, qtok, qlens, slots, nqg, use_short, s_cap = self._prep_rows(
+        b_all, qtok, qlens, slots, nqg, use_short, s_cap, _ = self._prep_rows(
             items, qp
         )
         compute_short = bool(use_short.any())
@@ -932,7 +940,6 @@ class SearchEngine:
         hs_kb2 = self.HSTAR_KB2 * hs_scale
         hs_fill = self.HSTAR_FILL if cand_cap == self.CAND_TERMS_FAST else 0
         int8_counts = slots.shape[1] <= 127  # K1/K2 count contract
-        scan_counts = slots.shape[1] <= WIDE_MAX_SUM  # K2w's
         uniform_hstar = self.HSTAR_SEL and self.host.uniform_weights
         gm = self.host.gram_matrix(self.GM_BUDGET)
         tiny_runs = (
@@ -943,14 +950,9 @@ class SearchEngine:
         )
         bm = sk = None
         sk_packed = False
-        too_wide = False  # a fitting table, sums past K2w's bound
         if gm is None and not tiny_runs:
-            if scan_counts:
-                bm = self.host.bitmap_tables(self.BITMAP_BUDGET)
-            else:
-                too_wide = self.host.bitmap_fits(self.BITMAP_BUDGET)
-            if (bm is None and not too_wide
-                    and self.host.n_terms >= self.SKETCH_MIN_TERMS):
+            bm = self.host.bitmap_tables(self.BITMAP_BUDGET)
+            if bm is None and self.host.n_terms >= self.SKETCH_MIN_TERMS:
                 sk_packed = self.SKETCH_PACKED and int8_counts
                 if sk_packed:
                     sk = self.host.sketch_tables(self.SKETCH_BUDGET)
@@ -1005,26 +1007,12 @@ class SearchEngine:
                 3 * int(sk[1].shape[0]) + 24 * n_edge + 48 * short_lanes
                 + (1 << 16)
             )
-        elif too_wide:
-            variant = "dense"
-            n_lanes = short_lanes + tl
         else:
             variant = "tiny_runs" if tiny_runs else "runs"
             n_lanes = short_lanes + s_cap
             per_q = 48 * s_cap + 24 * n_edge + 48 * short_lanes + (1 << 16)
         n_cand = min(cand_cap, max(_next_pow2(n_lanes, 16), 16), n_lanes)
         block_sel = bool(n_lanes >= 4 * n_cand * _BLK)
-        if variant == "dense":
-            self.last_routing = {
-                "variant": "dense",
-                "step": self._batch_cap(batch_bucket),
-                "n_cand": n_cand,
-                "block_sel": False,
-                "approx_sel": False,
-                "hstar": False,
-            }
-            return list(items), n_cand, n_lanes, None
-
         cap = max(int(self.BATCH_HBM_BUDGET // per_q), 8)
         step = 8
         while step * 2 <= min(cap, batch_bucket):

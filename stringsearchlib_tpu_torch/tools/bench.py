@@ -132,6 +132,22 @@ def _mutate(rng: random.Random, s: str) -> str:
     return "".join(chars)
 
 
+def documents(words, n: int, rng: random.Random, lo: int = 66_000,
+              hi: int = 100_000) -> list:
+    """``n`` pasted documents: ``_mutate``d keys joined by spaces, each cut
+    at a length drawn from [lo, hi] characters (queries past 65,535 gram
+    windows)."""
+    out = []
+    for _ in range(n):
+        target = rng.randint(lo, hi)
+        parts, size = [], 0
+        while size < target:
+            parts.append(_mutate(rng, rng.choice(words)))
+            size += len(parts[-1]) + 1
+        out.append(" ".join(parts)[:target])
+    return out
+
+
 _RTT_CACHE: dict = {}
 
 

@@ -79,11 +79,16 @@ def _sum_rows(rng, b, gp, total):
     return q
 
 
-@pytest.mark.parametrize("total", [128, 255, 256, 1000, 4096, pbm.WIDE_MAX_SUM])
+@pytest.mark.parametrize("total", [
+    128, 255, 256, 1000, 4096, pbm.WIDE_MAX_SUM, pbm.WIDE_MAX_SUM + 1,
+    3 * pbm.WIDE_MAX_SUM + 7, 2 * pbm.WIDE_MAX_SUM + 5,
+])
 def test_wide_plain_matches_numpy_and_reference_scan(total):
     """bitmap_hits_wide_ref == the numpy model == the reference's scan step
     (one unpacked row per query gram slot, int32 accumulation), and the
-    wrapper on CPU tensors runs it."""
+    wrapper on CPU tensors runs it once per part of at most WIDE_MAX_SUM a
+    row.  Past the bound, every third row holds the whole sum in one entry
+    (split across parts) and the rest spread it over 9 or 128 columns."""
     rng = np.random.default_rng(total)
     planes = _table(rng, 2, 128)
     q = _sum_rows(rng, 6, 128, total)
@@ -94,7 +99,8 @@ def test_wide_plain_matches_numpy_and_reference_scan(total):
     np.testing.assert_array_equal(got.numpy(), want)
     calls = pbm.K2W_REF_CALLS
     wrapped = pbm.bitmap_hits_wide(torch.from_numpy(q), torch.from_numpy(planes))
-    assert pbm.K2W_REF_CALLS == calls + 1 and torch.equal(wrapped, got)
+    parts = -(-total // pbm.WIDE_MAX_SUM)
+    assert pbm.K2W_REF_CALLS == calls + parts and torch.equal(wrapped, got)
     # the reference's accumulator, row by row of each query's gram slots
     rows = jc._unpack_planes(jnp.asarray(planes.transpose(1, 0, 2).reshape(128, -1)))
     rows = np.asarray(rows).astype(np.int64)
@@ -133,14 +139,41 @@ def test_compact_qcnt_any_width(width):
         assert not mults[r, nz.size :].any()
 
 
+def test_compact_qcnt_of_each_part():
+    """Each part of a split is a row list the kernel takes: the parts add up
+    to the counts, every row of every part sums to at most WIDE_MAX_SUM,
+    and no part lists more columns than the row has nonzero."""
+    rng = np.random.default_rng(3)
+    m = pbm.WIDE_MAX_SUM
+    q = np.zeros((4, 256), np.int64)
+    q[0, 7] = 2 * m + 5
+    q[1] = _sum_rows(rng, 1, 256, 3 * m + 7)[0]
+    q[2, :9] = m
+    q[3, 100] = 1
+    parts = list(pbm._wide_parts(torch.from_numpy(q), int(q.sum(1).max())))
+    assert len(parts) == 9
+    total = torch.zeros_like(parts[0])
+    for part in parts:
+        assert part.dtype == torch.int32 and int(part.sum(1).max()) <= m
+        assert ((part != 0).sum(1) <= torch.from_numpy((q != 0).sum(1))).all()
+        total += part
+    np.testing.assert_array_equal(total.numpy(), q)
+
+
 def test_wide_wrapper_rejects_what_the_kernel_does_not_take():
+    """Sums past WIDE_MAX_SUM are taken (in parts); negative multiplicities,
+    row sums of 2^31 or more, row-major tables and a Gp that does not match
+    are not."""
     planes = torch.zeros((2, 128, pbm.BLKB), dtype=torch.int8)
     q = torch.zeros((2, 128), dtype=torch.int32)
     q[1, :2] = torch.tensor([pbm.WIDE_MAX_SUM, 1])
-    with pytest.raises(ValueError, match="sum"):
-        pbm.bitmap_hits_wide(q, planes)
-    q[1, 1] = 0
     assert pbm.bitmap_hits_wide(q, planes).shape == (2, 2 * pbm.TILE_LANES)
+    q[1, :3] = torch.tensor([2**30, 2**30 - 1, 0])
+    assert pbm._check_wide(q, planes) == (2**31 - 1, 2)  # 32,769 parts
+    q[1, 2] = 1
+    with pytest.raises(ValueError, match="2\\^31"):
+        pbm.bitmap_hits_wide(q, planes)
+    q[1, :3] = 0
     q[0, 3] = -1
     with pytest.raises(ValueError):
         pbm.bitmap_hits_wide(q, planes)
@@ -301,14 +334,94 @@ def test_engine_scan_route_matches_jax_dense_and_oracle(gram, wide):
 
 
 def test_engine_past_k2w_bound_goes_dense(monkeypatch):
-    """Slot matrices wider than K2w's sum bound (queries of 64K characters)
-    take the dense path (variant "dense"); here the bound is lowered so a
-    Qp 256 batch meets it."""
+    """Slot matrices whose row sums pass K2w's per-launch bound keep
+    ``bitmap_scan`` (they went dense before the bound was lifted): K2w
+    counts them in parts, at least two per chunk.  The bound is lowered so
+    a Qp 256 batch meets it; results equal the JAX engine's (which scans
+    at any width), the port's dense path's and the port's oracle's, and
+    the routing keys the JAX engine's."""
     words = bench._product_names(1200, seed=3)
+    jh = jbuild(words, 1, None, JConfig())
     pe = _gate(PEngine(pbuild(words, 1, None, IndexConfig(), device="cpu")))
-    queries = _long_queries(random.Random(3), words, 4)
-    monkeypatch.setattr(pemod, "WIDE_MAX_SUM", 200)
+    je = _gate(JEngine(jh))
+    queries = _long_queries(random.Random(3), words, 4, lo=236, hi=250)
+    monkeypatch.setattr(pbm, "WIDE_MAX_SUM", 200)
+    wrapper_calls, orig = [], pbm.bitmap_hits_wide
+
+    def spy(qcnt, planes):
+        wrapper_calls.append(int(qcnt.sum(1).max()))
+        return orig(qcnt, planes)
+
+    monkeypatch.setattr(pbm, "bitmap_hits_wide", spy)
     calls = pbm.K2W_REF_CALLS
     got = pe.search_batch(queries, 0.1, 20, mode="candidates")
-    assert pe.last_routing["variant"] == "dense" and pbm.K2W_REF_CALLS == calls
-    assert got == pe.search_batch(queries, 0.1, 20, mode="dense")
+    want = je.search_batch(queries, 0.1, 20, mode="candidates")
+    assert pe.last_routing["variant"] == "bitmap_scan"
+    assert wrapper_calls and min(wrapper_calls) > 200, wrapper_calls
+    assert pbm.K2W_REF_CALLS - calls >= 2 * len(wrapper_calls)
+    for k in ("variant", "step", "n_cand", "block_sel", "hstar", "fused_bmax"):
+        assert pe.last_routing[k] == je.last_routing[k], k
+    dense = pe.search_batch(queries, 0.1, 20, mode="dense")
+    oracle = POracle(words, row_size=1, gram_size=3)
+    for q, g, w, d in zip(queries, got, want, dense):
+        assert _groups(g) == _groups(w) == _groups(d) == _groups(oracle.search(q, 0.1, 20)), q
+    assert all(len(g[0]) for g in got)
+
+
+def test_engine_scan_past_65536_windows():
+    """A pasted document of more than 65,536 characters (mutated keys
+    joined by spaces) and a run of 70,000 of one digit whose trigram the
+    index holds (one multiplicity of 69,998, split across parts) on an
+    index of 1,000 keys: ``bitmap_scan`` at Qp 131,072, K2w in two parts,
+    results equal to the port's dense path's (which expands each distinct
+    gram slot once) and oracle's as tie groups.  The JAX engine is not run
+    here: on the CPU its scan is a 131,070-step ``lax.scan`` per chunk;
+    ``test_engine_past_k2w_bound_goes_dense`` holds the split against it
+    at a lowered bound."""
+    words = bench._product_names(1000, seed=4)
+    pe = _gate(PEngine(pbuild(words, 1, None, IndexConfig(), device="cpu")))
+    rng = random.Random(4)
+    doc = bench._mutate(rng, rng.choice(words))
+    while len(doc) < 80_000:
+        doc += " " + bench._mutate(rng, rng.choice(words))
+    digit = next(d for d in "0123456789" if any(d * 3 in w for w in words))
+    queries = [doc, digit * 70_000]
+    passes = []
+    orig = pe._cand_pass
+
+    def spy(items, *a):
+        res = orig(items, *a)
+        passes.append(dict(pe.last_routing))
+        return res
+
+    pe._cand_pass = spy
+    calls = pbm.K2W_REF_CALLS
+    got = pe.search_batch(queries, 0.03, 20, mode="candidates")
+    assert passes and all(p["variant"] == "bitmap_scan" for p in passes), passes
+    assert pbm.K2W_REF_CALLS - calls >= 2 * len(passes)
+    dense = pe.search_batch(queries, 0.03, 20, mode="dense")
+    oracle = POracle(words, row_size=1, gram_size=3)
+    for q, g, d in zip(queries, got, dense):
+        assert len(g[0]) and _groups(g) == _groups(d) == _groups(oracle.search(q, 0.03, 20))
+
+
+def test_dense_lanes_count_distinct_slots():
+    """The dense path lays out each row's distinct gram slots once: a run
+    of 3,000 of one digit expands one posting list, not 2,998 copies, and
+    scores as the JAX engine's dense path and the oracle do."""
+    words = bench._product_names(1000, seed=4)
+    ph = pbuild(words, 1, None, IndexConfig(), device="cpu")
+    pe, je = PEngine(ph), JEngine(jbuild(words, 1, None, JConfig()))
+    digit = next(d for d in "0123456789" if any(d * 3 in w for w in words))
+    run = digit * 3000
+    items = [(0, *pe._normalize_query(run), None)]
+    slots = pe._prep_rows(items, 4096)[3]
+    full, mass = pe._slot_mass(slots)
+    posting = int(ph.host_posting_lens[slots[0, 0]])
+    assert mass == posting and full == 2998 * posting
+    got = pe.search_batch([run, run[:40]], 0.5, 0, mode="dense")
+    want = je.search_batch([run, run[:40]], 0.5, 0, mode="dense")
+    oracle = POracle(words, row_size=1, gram_size=3)
+    for q, g, w in zip([run, run[:40]], got, want):
+        assert len(g[0]) and _groups(g) == _groups(w) == _groups(oracle.search(q, 0.5, 0))
+    assert _groups(pe.search(run, 0.5, 0)) == _groups(got[0])

@@ -405,7 +405,7 @@ def test_with_bound_matches_jax_per_shard(large, front, narrow):
     for pos, q in enumerate(queries):
         qn, ql = sharded._normalize_query(q)
         items.append((pos, qn, ql, sharded.host.promo_key_ids(qn, ql)[:8]))
-    b, qtok, qlens, slots, nqg, use_short, s_cap = sharded._prep_rows(items, 32)
+    b, qtok, qlens, slots, nqg, use_short, s_cap, _ = sharded._prep_rows(items, 32)
     promo = np.full((b, sharded.PROMO_KEYS), -1, np.int32)
     for r, it in enumerate(items):
         promo[r, : it[3].size] = it[3]

@@ -1004,10 +1004,11 @@ def test_cuda_k2w_matches_plain_version(cuda, b, gp, total):
 
 def test_cuda_k2w_every_bit_set(cuda):
     """A table with every bit set: every count is the query's sum, up to the
-    bound of 65,535 (16 slices), through each way a row enters the
-    counters."""
+    per-launch bound of 65,535 (16 slices) and past it in parts (one entry
+    of 70,000 and 200,001, spread rows of 65,536 and 131,071), through each
+    way a row enters the counters."""
     planes = torch.full((2, 2816, pbm.BLKB), -1, dtype=torch.int8, device=cuda)
-    q = torch.zeros((6, 2816), dtype=torch.int32)
+    q = torch.zeros((10, 2816), dtype=torch.int32)
     q[0, 7] = pbm.WIDE_MAX_SUM
     q[1, :2816] = 1
     q[2, 100:104] = torch.tensor([40000, 20000, 5000, 535])
@@ -1015,20 +1016,58 @@ def test_cuda_k2w_every_bit_set(cuda):
     q[4, :1000] = 1
     q[4, 1000:1010] = 300
     q[5, 2000] = 256
+    q[6, 9] = 70_000
+    q[7, 2815] = 200_001
+    q[8, :2816] = 1
+    q[8, 0] = pbm.WIDE_MAX_SUM + 1 - 2815
+    q[9, 100:104] = torch.tensor([65_535, 65_535, 1, 0])
     q = q.to(cuda)
+    launches = pbm.K2W_LAUNCHES
     hits = pbm.bitmap_hits_wide(q, planes)
     torch.cuda.synchronize()
+    assert pbm.K2W_LAUNCHES == launches + 4  # ceil(200,001 / 65,535)
     assert torch.equal(hits, q.sum(1, dtype=torch.int32)[:, None].expand_as(hits))
 
 
+def test_cuda_k2w_accumulate_matches_plain(cuda):
+    """K2w's accumulating launch adds its counts into the int32 hits in
+    place: random tables, random hits already there (negative ones too),
+    bit for bit against the plain version plus those hits."""
+    from stringsearchlib_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(5)
+    launch = kernels.lib("bitmap_hits").bitmap_hits_wide_launch
+    for b, gp, total in ((1, 128, 300), (33, 2816, 65_535), (64, 8192, 1000)):
+        planes = torch.from_numpy(
+            rng.integers(0, 256, size=(3, gp, pbm.BLKB), dtype=np.uint8).view(np.int8)
+        ).to(cuda)
+        q = _wide_qcnt(rng, b, gp, total).to(cuda)
+        rows, mults = pbm._compact_qcnt(q, int((q != 0).sum(1).max()))
+        before = torch.from_numpy(
+            rng.integers(-2**20, 2**20, size=(b, 3 * pbm.TILE_LANES), dtype=np.int32)
+        ).to(cuda)
+        hits = before.clone()
+        err = launch(planes.data_ptr(), rows.data_ptr(), mults.data_ptr(), hits.data_ptr(),
+                     b, gp, 3, rows.shape[1], 1, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err == 0
+        assert torch.equal(hits, before + pbm.bitmap_hits_wide_ref(q, planes))
+
+
 def test_cuda_k2w_contracts(cuda):
-    """K2w raises past its sum bound, on negative multiplicities and on a
-    row-major table; an empty batch launches nothing."""
+    """K2w takes row sums past 65,535 (in parts) and raises at 2^31, on
+    negative multiplicities and on a row-major table; an empty batch
+    launches nothing."""
     planes = torch.zeros((2, 128, pbm.BLKB), dtype=torch.int8, device=cuda)
     q = torch.zeros((2, 128), dtype=torch.int32, device=cuda)
     q[1, 5] = pbm.WIDE_MAX_SUM + 1
+    launches = pbm.K2W_LAUNCHES
+    assert not pbm.bitmap_hits_wide(q, planes).any()
+    assert pbm.K2W_LAUNCHES == launches + 2
+    q[1, 4:6] = torch.tensor([2**30, 2**30], dtype=torch.int32)
     with pytest.raises(ValueError):
         pbm.bitmap_hits_wide(q, planes)
+    q[1, 4] = 0
     q[1, 5] = -1
     with pytest.raises(ValueError):
         pbm.bitmap_hits_wide(q, planes)
@@ -1037,6 +1076,34 @@ def test_cuda_k2w_contracts(cuda):
     launches = pbm.K2W_LAUNCHES
     out = pbm.bitmap_hits_wide(q[:0], planes)
     assert out.shape == (0, 2 * pbm.TILE_LANES) and pbm.K2W_LAUNCHES == launches
+
+
+def test_cuda_gather_hits_distinct_slots(cuda):
+    """The dense path's expansion of each row's distinct gram slots, weighted
+    by multiplicity (K6's expansion, then a weighted scatter-add), on the
+    card equals the CPU's and the plain count of one posting list per
+    window (K6's expansion of every repeat and a scatter-add of ones)."""
+    from stringsearchlib_tpu_torch.search import overlap as pov
+
+    rng = np.random.default_rng(8)
+    g, n_long = 300, 20_000
+    lens = rng.integers(0, 400, g)
+    ptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    terms = np.concatenate([np.sort(rng.choice(n_long, k, replace=False))
+                            for k in lens]).astype(np.int32)
+    slots = rng.integers(-1, g, (16, 5000)).astype(np.int32)
+    slots[0] = 7
+    slots[1, :4000] = np.arange(4000) % 5
+    args = [torch.from_numpy(a) for a in (ptr, terms, slots)]
+    cuda_args = [a.to(cuda) for a in args]
+    mass = max(sum(int(lens[x]) for x in set(r.tolist()) if x >= 0) for r in slots)
+    full = max(sum(int(lens[x]) for x in r.tolist() if x >= 0) for r in slots)
+    got = pov.gather_hits(*cuda_args, n_long, mass)
+    assert torch.equal(got.cpu(), pov.gather_hits(*args, n_long, mass))
+    ids = pvg.expand_postings(*cuda_args, full, n_long).long()
+    want = torch.zeros((16, n_long + 1), dtype=torch.int32, device=cuda)
+    want.scatter_add_(1, ids, torch.ones_like(ids, dtype=torch.int32))
+    assert torch.equal(got, want[:, :n_long])
 
 
 def test_scan_route_on_cuda_matches_cpu(cuda):

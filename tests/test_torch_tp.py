@@ -156,7 +156,7 @@ def test_tp_summed_hits_bit_identical(engines):
         qn, ql = tp_eng._normalize_query(q)
         items.append((pos, qn, ql, None))
     qp = tp_eng._chunk_qp(items)
-    b, qtok, qlens, slots, nqg, use_short, _ = tp_eng._prep_rows(items, qp)
+    b, qtok, qlens, slots, nqg, use_short, _, _ = tp_eng._prep_rows(items, qp)
     s_cap = tp_eng._s_cap(slots, len(items))
     shards = tp_eng._leaves()
     qbufs = replicate((qtok, qlens, slots, nqg, use_short), tp_eng.mesh.row_devices)

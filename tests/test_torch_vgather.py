@@ -239,6 +239,39 @@ def test_gather_hits_matches_jax():
     np.testing.assert_array_equal(got, want)
 
 
+def test_gather_hits_distinct_slots_match_jax():
+    """Each row's distinct slots expand once, weighted by their
+    multiplicity, into lanes sized for the distinct posting mass; the hits
+    equal the JAX package's expansion of every repeat."""
+    rng = np.random.default_rng(12)
+    g, n_long = 40, 500
+    lens = rng.integers(0, 30, g)
+    lens[5] = 0
+    ptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    terms = np.concatenate([
+        np.sort(rng.choice(n_long, k, replace=False)) for k in lens
+    ]).astype(np.int32)
+    slots = rng.integers(-1, g, (5, 300)).astype(np.int32)
+    slots[0] = 7  # one gram 300 times
+    slots[1, ::2] = 5  # an empty posting list, repeated
+    slots[2] = -1
+    slots[3, :200] = np.arange(200) % 3
+    mass = [sum(int(lens[x]) for x in set(r.tolist()) if x >= 0) for r in slots]
+    full = [sum(int(lens[x]) for x in r.tolist() if x >= 0) for r in slots]
+    want = np.asarray(jax_hits(ptr, terms, slots, n_long, max(full)))
+    got = pov.gather_hits(torch.from_numpy(ptr), torch.from_numpy(terms),
+                          torch.from_numpy(slots), n_long, max(mass)).numpy()
+    np.testing.assert_array_equal(got, want)
+    # rows in which every slot owns lanes (no absent, empty or repeated one)
+    own = np.flatnonzero(lens)
+    slots = np.stack([rng.permutation(own)[:20] for _ in range(3)]).astype(np.int32)
+    mass = max(int(lens[r].sum()) for r in slots)
+    want = np.asarray(jax_hits(ptr, terms, slots, n_long, mass))
+    got = pov.gather_hits(torch.from_numpy(ptr), torch.from_numpy(terms),
+                          torch.from_numpy(slots), n_long, mass).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
 def jax_hits(ptr, terms, slots, n_long, s_cap):
     import jax
 
