@@ -1,0 +1,9 @@
+"""The 95th percentile over all batches of the window, submit to results on
+the host, in milliseconds."""
+
+import numpy as np
+
+
+def read(run):
+    lat = run.window.latencies
+    return float(np.percentile(lat, 95) * 1e3) if lat else None
