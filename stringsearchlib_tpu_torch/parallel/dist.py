@@ -699,6 +699,10 @@ class ShardedEngine(SearchEngine):
     ``last_routing`` records the candidate front (``variant``: ``matmul``
     or ``runs``) of the most recent candidate pass."""
 
+    # the sharded passes count no retried or dense rows: each call's
+    # ``last_routing["call"]`` holds its queries only
+    CALL_COUNTERS = ("queries",)
+
     def __init__(self, sharded: ShardedIndex, mesh: Optional[Mesh] = None):
         super().__init__(sharded.host)
         if mesh is None:

@@ -276,6 +276,10 @@ class GramShardedEngine(SearchEngine):
     ``device="cpu"`` - nothing here uploads the unsharded postings CSR (the
     thing this split exists to divide)."""
 
+    # the sharded passes count no retried or dense rows: each call's
+    # ``last_routing["call"]`` holds its queries only
+    CALL_COUNTERS = ("queries",)
+
     def __init__(self, gx: GramShardedIndex, mesh: Optional[Mesh] = None):
         super().__init__(gx.host)
         if mesh is None:

@@ -42,6 +42,7 @@ from ..config import INT32_MAX, PERFECT_SCORE_CUTOFF, PROMOTED_SCORE
 from ..core import grams as gramlib
 from ..core import text as textlib
 from ..index.build import HostIndex
+from ..utils.metrics import span
 from .candidates import (
     _BLK, _f32, candidates_bitmap, candidates_bitmap_gather,
     candidates_bitmap_mxu, candidates_matmul, candidates_runs, hstar_retry,
@@ -56,6 +57,12 @@ _NEG_INF = float("-inf")
 # hits (4), float32 scores (4) and bounds (4), the float32 product that
 # makes the bounds (4) and the pass mask (1)
 _SCAN_LANE_BYTES = 17
+
+# the per-call counters of SearchEngine.last_routing["call"], each summed
+# over every query-width group, pass and tier of one public call: the
+# queries, the rows whose first candidate pass failed its exactness guard,
+# and the rows the dense path answered
+_CALL_KEYS = ("queries", "retry_fast", "dense_rows")
 
 
 def _next_pow2(n: int, lo: int) -> int:
@@ -283,8 +290,10 @@ def _unpack(block: np.ndarray, top_k: int, with_exact: bool = False):
 
 
 def _fetch(blocks: list) -> np.ndarray:
-    """Every queued result block, in one device->host copy."""
-    return torch.cat(blocks, 0).cpu().numpy()
+    """Every queued result block, in one device->host copy (where the host
+    waits for the device)."""
+    with span("sslib.fetch"):
+        return torch.cat(blocks, 0).cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -302,8 +311,12 @@ class SearchEngine:
         self.device = host.device.device
         # wildcard results are query-independent and the index immutable
         self._wildcard_cache: dict = {}
-        # resolved routing of the most recent candidate pass
+        # reset by every public call: the resolved routing of its last
+        # candidate pass (``variant`` "dense" / "brute" for a single query
+        # on the dense path), and under "call" the call's counters
+        # (_CALL_KEYS)
         self.last_routing: dict = {}
+        self._call = dict.fromkeys(_CALL_KEYS, 0)
         # optional observability (utils.metrics.QueryMetrics); None = off
         self.metrics = None
 
@@ -343,16 +356,31 @@ class SearchEngine:
 
     # -- public search ----------------------------------------------------
 
+    # the _CALL_KEYS this engine counts; an engine whose passes count fewer
+    # (the sharded engines) reports only those
+    CALL_COUNTERS = _CALL_KEYS
+
+    def _open_call(self, queries: int) -> None:
+        self.last_routing = {}
+        self._call = dict.fromkeys(_CALL_KEYS, 0)
+        self._call["queries"] = queries
+
+    def _close_call(self, seconds: float) -> None:
+        call = {k: self._call[k] for k in self.CALL_COUNTERS}
+        self.last_routing["call"] = call
+        if self.metrics is not None:
+            self.metrics.record(seconds, call["queries"], call)
+
     def search(self, query, threshold: float = 0.0, limit: int = 0):
         """Returns (result key strings, scores); limit 0 = unbounded
         (nGramSearch.hpp:454-455)."""
-        if self.metrics is not None:
-            t0 = time.perf_counter()
-            try:
+        t0 = time.perf_counter()
+        self._open_call(1)
+        try:
+            with span("sslib.search"):
                 return self._search_impl(query, threshold, limit)
-            finally:
-                self.metrics.record(time.perf_counter() - t0)
-        return self._search_impl(query, threshold, limit)
+        finally:
+            self._close_call(time.perf_counter() - t0)
 
     def _search_impl(self, query, threshold: float = 0.0, limit: int = 0):
         if not self.host.indexed:
@@ -375,11 +403,13 @@ class SearchEngine:
                 self._wildcard_cache[top_k] = cached
             count, ids_np, scores_np = cached
             n = min(int(count[0]), limit, int(ids_np.shape[1]))
-            return (
-                [self.host.key_strings[i] for i in ids_np[0, :n]],
-                [float(s) for s in scores_np[0, :n]],
-            )
-        qnorm, qlen = self._normalize_query(raw)
+            with span("sslib.emit"):
+                return (
+                    [self.host.key_strings[i] for i in ids_np[0, :n]],
+                    [float(s) for s in scores_np[0, :n]],
+                )
+        with span("sslib.front"):
+            qnorm, qlen = self._normalize_query(raw)
         if qlen == 0:
             return [], []
         # an eligible single query on a large index takes the candidate
@@ -393,38 +423,44 @@ class SearchEngine:
             return self._search_batch_impl(
                 [raw], threshold, limit, 256, 32, "auto"
             )[0]
-        qtok, qmax, slots, n_qgrams, s_cap = self._query_buffers(qnorm, qlen)
-        use_short = qlen < self.cfg.short_search_cutoff
         brute_long = qlen <= self.cfg.brute_force_cutoff
-        # dense paths carry EVERY promo id (pow2-bucketed width)
-        pids = self.host.promo_key_ids(qnorm, qlen)
-        promo = np.full(
-            _next_pow2(max(pids.size, 1), self.PROMO_KEYS), -1, np.int32
-        )
-        promo[: pids.size] = pids
-        res = search_device_impl(
-            di,
-            self._t(qtok[None]),
-            self._t(np.array([qlen], np.int32)),
-            self._t(slots[None]),
-            self._t(np.array([n_qgrams], np.int32)),
-            self._t(np.array([use_short])),
-            self._t(promo[None]),
-            np.float32(threshold),
-            compute_short=use_short,
-            brute_long=brute_long,
-            s_cap=s_cap,
-            top_k=top_k,
-            long_buckets=self.host.long_dp_buckets() if brute_long else (),
-        )
-        count, ids_np, scores_np = _unpack(
-            _fetch([_pack(*res)]), int(res[1].shape[1])
-        )
-        n = min(int(count[0]), limit, int(ids_np.shape[1]))
-        return (
-            [self.host.key_strings[i] for i in ids_np[0, :n]],
-            [float(s) for s in scores_np[0, :n]],
-        )
+        self.last_routing["variant"] = "brute" if brute_long else "dense"
+        if not brute_long:
+            self._call["dense_rows"] += 1
+        with span("sslib.front"):
+            qtok, qmax, slots, n_qgrams, s_cap = self._query_buffers(qnorm, qlen)
+            use_short = qlen < self.cfg.short_search_cutoff
+            # dense paths carry EVERY promo id (pow2-bucketed width)
+            pids = self.host.promo_key_ids(qnorm, qlen)
+            promo = np.full(
+                _next_pow2(max(pids.size, 1), self.PROMO_KEYS), -1, np.int32
+            )
+            promo[: pids.size] = pids
+        with span("sslib.dispatch"):
+            res = search_device_impl(
+                di,
+                self._t(qtok[None]),
+                self._t(np.array([qlen], np.int32)),
+                self._t(slots[None]),
+                self._t(np.array([n_qgrams], np.int32)),
+                self._t(np.array([use_short])),
+                self._t(promo[None]),
+                np.float32(threshold),
+                compute_short=use_short,
+                brute_long=brute_long,
+                s_cap=s_cap,
+                top_k=top_k,
+                long_buckets=self.host.long_dp_buckets() if brute_long else (),
+            )
+            block = _pack(*res)
+        fetched = _fetch([block])
+        with span("sslib.emit"):
+            count, ids_np, scores_np = _unpack(fetched, int(res[1].shape[1]))
+            n = min(int(count[0]), limit, int(ids_np.shape[1]))
+            return (
+                [self.host.key_strings[i] for i in ids_np[0, :n]],
+                [float(s) for s in scores_np[0, :n]],
+            )
 
     # -- batched search ----------------------------------------------------
 
@@ -448,17 +484,15 @@ class SearchEngine:
         large indexes (exact results; rows whose exactness guard fails are
         recomputed densely), "dense" forces the dense batch, "candidates"
         forces the candidate path where eligible."""
-        if self.metrics is not None:
-            t0 = time.perf_counter()
-            try:
+        t0 = time.perf_counter()
+        self._open_call(len(queries))
+        try:
+            with span("sslib.search_batch"):
                 return self._search_batch_impl(
                     queries, threshold, limit, batch_bucket, qp_bucket, mode
                 )
-            finally:
-                self.metrics.record(time.perf_counter() - t0, len(queries))
-        return self._search_batch_impl(
-            queries, threshold, limit, batch_bucket, qp_bucket, mode
-        )
+        finally:
+            self._close_call(time.perf_counter() - t0)
 
     def _search_batch_impl(
         self, queries, threshold, limit, batch_bucket, qp_bucket, mode
@@ -469,59 +503,61 @@ class SearchEngine:
         if not self.host.indexed:
             return [([], [])] * len(queries)
 
-        items = []  # (position, qnorm, qlen, promo_row or None)
-        brute_items = []  # (position, qnorm, qlen): qlen <= gram_size
-        want_cand = mode != "dense" and (
-            mode == "candidates"
-            or (
-                limit <= self.CAND_MAX_LIMIT
-                and self.host.n_terms >= self.CAND_MIN_TERMS
-            )
-        )
-        ke_counts = self.host.host_key_edge_counts
         raws = [q if isinstance(q, str) else str(q) for q in queries]
-        nz = [i for i, r in enumerate(raws) if len(r) > 0 and r != "*"]
-        if nz:
-            tokens, lengths = textlib.encode_batch(
-                [raws[i] for i in nz], self.cfg.wide
-            )
-            norm_tok, norm_len = textlib.normalize_matrix(
-                tokens, lengths, self.host.tables
-            )
-            promo_rows = (
-                self.host.promo_key_ids_batch(norm_tok, norm_len)
-                if want_cand else [None] * len(nz)
-            )
         for i, raw in enumerate(raws):
             if len(raw) == 0 or raw == "*":
                 out[i] = self._search_impl(raw, threshold, limit)
-        for j, i in enumerate(nz):
-            qnorm, qlen = norm_tok[j], int(norm_len[j])
-            if qlen == 0:
-                out[i] = ([], [])
-            elif qlen <= self.cfg.brute_force_cutoff:
-                brute_items.append((i, qnorm, qlen))
-            else:
-                promo = None
-                if want_cand:
-                    pids = promo_rows[j]
-                    if pids.size <= self.PROMO_KEYS and (
-                        pids.size == 0
-                        or int(ke_counts[pids].max()) <= self.PROMO_EDGES
-                    ):
-                        promo = pids
-                items.append((i, qnorm, qlen, promo))
-
-        if not items and not brute_items:
-            return out
-
-        # queries longer than qp_bucket batch in their own pow2-width groups
-        groups: dict = {}
-        for it in items:
-            qp_i = qp_bucket if it[2] <= qp_bucket else _next_pow2(
-                it[2], qp_bucket
+        with span("sslib.front"):
+            items = []  # (position, qnorm, qlen, promo_row or None)
+            brute_items = []  # (position, qnorm, qlen): qlen <= gram_size
+            want_cand = mode != "dense" and (
+                mode == "candidates"
+                or (
+                    limit <= self.CAND_MAX_LIMIT
+                    and self.host.n_terms >= self.CAND_MIN_TERMS
+                )
             )
-            groups.setdefault(qp_i, []).append(it)
+            ke_counts = self.host.host_key_edge_counts
+            nz = [i for i, r in enumerate(raws) if len(r) > 0 and r != "*"]
+            if nz:
+                tokens, lengths = textlib.encode_batch(
+                    [raws[i] for i in nz], self.cfg.wide
+                )
+                norm_tok, norm_len = textlib.normalize_matrix(
+                    tokens, lengths, self.host.tables
+                )
+                promo_rows = (
+                    self.host.promo_key_ids_batch(norm_tok, norm_len)
+                    if want_cand else [None] * len(nz)
+                )
+            for j, i in enumerate(nz):
+                qnorm, qlen = norm_tok[j], int(norm_len[j])
+                if qlen == 0:
+                    out[i] = ([], [])
+                elif qlen <= self.cfg.brute_force_cutoff:
+                    brute_items.append((i, qnorm, qlen))
+                else:
+                    promo = None
+                    if want_cand:
+                        pids = promo_rows[j]
+                        if pids.size <= self.PROMO_KEYS and (
+                            pids.size == 0
+                            or int(ke_counts[pids].max()) <= self.PROMO_EDGES
+                        ):
+                            promo = pids
+                    items.append((i, qnorm, qlen, promo))
+
+            if not items and not brute_items:
+                return out
+
+            # queries longer than qp_bucket batch in their own pow2-width
+            # groups
+            groups: dict = {}
+            for it in items:
+                qp_i = qp_bucket if it[2] <= qp_bucket else _next_pow2(
+                    it[2], qp_bucket
+                )
+                groups.setdefault(qp_i, []).append(it)
         for qp_i in sorted(groups):
             grp = groups[qp_i]
             cand_items = [it for it in grp if want_cand and it[3] is not None]
@@ -561,19 +597,21 @@ class SearchEngine:
             b, qtok, qlens, slots, nqg, _, _, d_cap = self._prep_rows(
                 chunk, qp, min_b=min(step, 16)
             )
-            res = search_brute_batch_device_impl(
-                di,
-                self._t(qtok),
-                self._t(qlens),
-                self._t(slots),
-                self._t(nqg),
-                self._t(self._promo_array(chunk, b)),
-                np.float32(threshold),
-                s_cap=d_cap,
-                top_k=top_k,
-                long_buckets=self.host.long_dp_buckets(),
-            )
-            pending.append((chunk, b, _pack(*res)))
+            promo = self._promo_array(chunk, b)
+            with span("sslib.dispatch"):
+                res = search_brute_batch_device_impl(
+                    di,
+                    self._t(qtok),
+                    self._t(qlens),
+                    self._t(slots),
+                    self._t(nqg),
+                    self._t(promo),
+                    np.float32(threshold),
+                    s_cap=d_cap,
+                    top_k=top_k,
+                    long_buckets=self.host.long_dp_buckets(),
+                )
+                pending.append((chunk, b, _pack(*res)))
         self._emit_dense(pending, limit, out)
 
     def _emit_dense(self, pending, limit, out):
@@ -583,13 +621,14 @@ class SearchEngine:
         block = _fetch([blk for _, _, blk in pending])
         width = (block.shape[1] - 1) // 2
         lo = 0
-        for chunk, b, _ in pending:
-            counts, ids_b, scores_b = _unpack(block[lo : lo + b], width)
-            lo += b
-            for r, item in enumerate(chunk):
-                self._emit_row(
-                    out, item[0], counts[r], ids_b[r], scores_b[r], limit
-                )
+        with span("sslib.emit"):
+            for chunk, b, _ in pending:
+                counts, ids_b, scores_b = _unpack(block[lo : lo + b], width)
+                lo += b
+                for r, item in enumerate(chunk):
+                    self._emit_row(
+                        out, item[0], counts[r], ids_b[r], scores_b[r], limit
+                    )
 
     # device-memory budget for per-batch intermediates: batch sizes shrink
     # as the index grows (the reference's value)
@@ -609,36 +648,37 @@ class SearchEngine:
         with the two lane bounds of ``_slot_mass``: ``s_cap`` (one posting
         list per window: the runs routes) and ``d_cap`` (one per distinct
         slot: ``overlap.gather_hits``)."""
-        g = self.cfg.gram_size
-        qmax = qp - g + 1
-        b = _next_pow2(len(chunk), min_b)
-        qtok = np.zeros((b, qp), dtype=np.int32)
-        qlens = np.zeros(b, dtype=np.int32)
-        slots = np.full((b, qmax), -1, dtype=np.int32)
-        for r, item in enumerate(chunk):
-            qlen = item[2]
-            qtok[r, :qlen] = item[1][:qlen]
-            qlens[r] = qlen
-        use_short = (qlens > 0) & (qlens < self.cfg.short_search_cutoff)
-        nqg = np.maximum(qlens - (g - 1), 0).astype(np.int32)
-        nn = len(chunk)
-        s_total = d_total = 0
-        if nn and qmax > 0:
-            ids, valid = gramlib.gram_ids(
-                qtok[:nn], qlens[:nn], g, self.cfg.wide, self.host.vocab
-            )
-            rowslots = np.full(ids.shape, -1, np.int32)
-            fv = valid.ravel()
-            if fv.any():
-                rowslots.ravel()[fv] = self.host.lookup_gram_slots(
-                    ids.ravel()[fv]
+        with span("sslib.prep"):
+            g = self.cfg.gram_size
+            qmax = qp - g + 1
+            b = _next_pow2(len(chunk), min_b)
+            qtok = np.zeros((b, qp), dtype=np.int32)
+            qlens = np.zeros(b, dtype=np.int32)
+            slots = np.full((b, qmax), -1, dtype=np.int32)
+            for r, item in enumerate(chunk):
+                qlen = item[2]
+                qtok[r, :qlen] = item[1][:qlen]
+                qlens[r] = qlen
+            use_short = (qlens > 0) & (qlens < self.cfg.short_search_cutoff)
+            nqg = np.maximum(qlens - (g - 1), 0).astype(np.int32)
+            nn = len(chunk)
+            s_total = d_total = 0
+            if nn and qmax > 0:
+                ids, valid = gramlib.gram_ids(
+                    qtok[:nn], qlens[:nn], g, self.cfg.wide, self.host.vocab
                 )
-            m = min(qmax, rowslots.shape[1])
-            slots[:nn, :m] = rowslots[:, :m]
-            s_total, d_total = self._slot_mass(rowslots)
-        s_cap = _next_pow2(max(s_total, 1), 1024)
-        d_cap = _next_pow2(max(d_total, 1), 1024)
-        return b, qtok, qlens, slots, nqg, use_short, s_cap, d_cap
+                rowslots = np.full(ids.shape, -1, np.int32)
+                fv = valid.ravel()
+                if fv.any():
+                    rowslots.ravel()[fv] = self.host.lookup_gram_slots(
+                        ids.ravel()[fv]
+                    )
+                m = min(qmax, rowslots.shape[1])
+                slots[:nn, :m] = rowslots[:, :m]
+                s_total, d_total = self._slot_mass(rowslots)
+            s_cap = _next_pow2(max(s_total, 1), 1024)
+            d_cap = _next_pow2(max(d_total, 1), 1024)
+            return b, qtok, qlens, slots, nqg, use_short, s_cap, d_cap
 
     def _slot_mass(self, rowslots: np.ndarray) -> tuple:
         """``slot_mass`` over the index's posting lengths."""
@@ -670,19 +710,20 @@ class SearchEngine:
         """(b, PK) int32 promotion key ids (-1 padded); PK buckets to the
         chunk's maximum (pow2, floor PROMO_KEYS) so dense paths carry every
         promo id."""
-        rows = [
-            item[3] if len(item) > 3 and item[3] is not None else (
-                self.host.promo_key_ids(item[1], item[2])
+        with span("sslib.prep"):
+            rows = [
+                item[3] if len(item) > 3 and item[3] is not None else (
+                    self.host.promo_key_ids(item[1], item[2])
+                )
+                for item in chunk
+            ]
+            width = _next_pow2(
+                max((r.size for r in rows), default=1) or 1, self.PROMO_KEYS
             )
-            for item in chunk
-        ]
-        width = _next_pow2(
-            max((r.size for r in rows), default=1) or 1, self.PROMO_KEYS
-        )
-        promo = np.full((b, width), -1, np.int32)
-        for r, pids in enumerate(rows):
-            promo[r, : pids.size] = pids
-        return promo
+            promo = np.full((b, width), -1, np.int32)
+            for r, pids in enumerate(rows):
+                promo[r, : pids.size] = pids
+            return promo
 
     def _emit_row(self, out, pos, count, ids_row, scores_row, limit):
         n = min(int(count), limit, ids_row.shape[0])
@@ -692,26 +733,31 @@ class SearchEngine:
         )
 
     def _run_dense_chunks(self, items, threshold, limit, batch_bucket, qp, out):
+        self._call["dense_rows"] += len(items)
         top_k = self._top_k(limit)
         batch_bucket = self._batch_cap(batch_bucket)
         pending = []
         for lo in range(0, len(items), batch_bucket):
             chunk = items[lo : lo + batch_bucket]
-            b, qtok, qlens, slots, nqg, use_short, _, d_cap = self._prep_rows(chunk, qp)
-            res = search_batch_device_impl(
-                self.host.device,
-                self._t(qtok),
-                self._t(qlens),
-                self._t(slots),
-                self._t(nqg),
-                self._t(use_short),
-                self._t(self._promo_array(chunk, b)),
-                np.float32(threshold),
-                compute_short=bool(use_short.any()),
-                s_cap=d_cap,
-                top_k=top_k,
+            b, qtok, qlens, slots, nqg, use_short, _, d_cap = self._prep_rows(
+                chunk, qp
             )
-            pending.append((chunk, b, _pack(*res)))
+            promo = self._promo_array(chunk, b)
+            with span("sslib.dispatch"):
+                res = search_batch_device_impl(
+                    self.host.device,
+                    self._t(qtok),
+                    self._t(qlens),
+                    self._t(slots),
+                    self._t(nqg),
+                    self._t(use_short),
+                    self._t(promo),
+                    np.float32(threshold),
+                    compute_short=bool(use_short.any()),
+                    s_cap=d_cap,
+                    top_k=top_k,
+                )
+                pending.append((chunk, b, _pack(*res)))
         self._emit_dense(pending, limit, out)
 
     # device-memory budget for the dense gram->term incidence of the
@@ -792,73 +838,84 @@ class SearchEngine:
             self.last_routing["retry_sel"] = n_sel
         self.last_routing["retry_fast"] = n_retry_fast
         self.last_routing["n_items"] = len(items)
+        self._call["retry_fast"] += n_retry_fast
         return retry
 
     def _hstar_sel_retry(self, sel_ctx, threshold, limit, out):
         """Re-select guard-failed rows from the retained first-pass hits at
         the escalated budgets.  Returns the rows whose guard still fails."""
         fails = sel_ctx["fails"]  # [(item, chunk_idx, row_in_chunk, grow)]
-        b_r = _next_pow2(len(fails), 8)
-        pad = b_r - len(fails)
-        # grouped by chunk so each chunk contributes one gather; pad rows
-        # replicate the last entry (their outputs are ignored)
-        order = sorted(range(len(fails)), key=lambda fi: fails[fi][1])
-        rows = order + [order[-1]] * pad
-        hit_parts, hmax_parts = [], []
-        lo = 0
-        while lo < len(rows):
-            ci = fails[rows[lo]][1]
-            hi = lo
-            while hi < len(rows) and fails[rows[hi]][1] == ci:
-                hi += 1
-            idx = self._t(np.asarray([fails[fi][2] for fi in rows[lo:hi]], np.int64))
-            hits_ref, hmax_ref = sel_ctx["chunks"][ci]
-            hit_parts.append(hits_ref.index_select(0, idx))
-            hmax_parts.append(hmax_ref.index_select(0, idx))
-            lo = hi
-        hits_r = torch.cat(hit_parts, 0)
-        hmax_r = torch.cat(hmax_parts, 0)
-        grows = np.asarray([fails[fi][3] for fi in rows], np.int64)
-        lim_arr = np.full((b_r,), min(limit, 2**30), dtype=np.int32)
-        scale = max(self.CAND_TERMS // self.CAND_TERMS_FAST, 1)
-        n_lanes = sel_ctx["n_lanes"]
-        n_cand = min(self.CAND_TERMS, max(_next_pow2(n_lanes, 16), 16), n_lanes)
-        res = hstar_retry(
-            self.host.device,
-            hits_r,
-            hmax_r,
-            sel_ctx["pt"],
-            sel_ctx["xt"],
-            self._t(sel_ctx["qtok"][grows]),
-            self._t(sel_ctx["qlens"][grows]),
-            self._t(sel_ctx["nqg"][grows]),
-            self._t(sel_ctx["use_short"][grows]),
-            self._t(sel_ctx["promo_all"][grows]),
-            self._t(sel_ctx["promo_t"][grows]),
-            self._t(sel_ctx["promo_w"][grows]),
-            self._t(lim_arr),
-            np.float32(threshold),
-            compute_short=sel_ctx["compute_short"],
-            kb1=self.HSTAR_KB1 * scale,
-            kb2=self.HSTAR_KB2 * scale,
-            n_cand=n_cand,
-            top_k=sel_ctx["top_k"],
-            n_edge=sel_ctx["n_edge"],
-            vmax=sel_ctx["vmax"],
-        )
-        width = int(res[1].shape[1])
-        counts, ids_b, scores_b, exact = _unpack(
-            _fetch([_pack(res[0], res[1], res[2], res[4])]), width, True
-        )
-        still = []
-        for pos, fi in enumerate(order):
-            item = fails[fi][0]
-            if exact[pos]:
-                self._emit_row(
-                    out, item[0], counts[pos], ids_b[pos], scores_b[pos], limit,
+        with span("sslib.prep"):
+            b_r = _next_pow2(len(fails), 8)
+            pad = b_r - len(fails)
+            # grouped by chunk so each chunk contributes one gather; pad rows
+            # replicate the last entry (their outputs are ignored)
+            order = sorted(range(len(fails)), key=lambda fi: fails[fi][1])
+            rows = order + [order[-1]] * pad
+            groups = []  # (chunk index, its rows to gather)
+            lo = 0
+            while lo < len(rows):
+                ci = fails[rows[lo]][1]
+                hi = lo
+                while hi < len(rows) and fails[rows[hi]][1] == ci:
+                    hi += 1
+                groups.append(
+                    (ci, np.asarray([fails[fi][2] for fi in rows[lo:hi]], np.int64))
                 )
-            else:
-                still.append(item)
+                lo = hi
+            grows = np.asarray([fails[fi][3] for fi in rows], np.int64)
+            lim_arr = np.full((b_r,), min(limit, 2**30), dtype=np.int32)
+            scale = max(self.CAND_TERMS // self.CAND_TERMS_FAST, 1)
+            n_lanes = sel_ctx["n_lanes"]
+            n_cand = min(self.CAND_TERMS, max(_next_pow2(n_lanes, 16), 16), n_lanes)
+        with span("sslib.dispatch"):
+            hit_parts, hmax_parts = [], []
+            for ci, sel in groups:
+                idx = self._t(sel)
+                hits_ref, hmax_ref = sel_ctx["chunks"][ci]
+                hit_parts.append(hits_ref.index_select(0, idx))
+                hmax_parts.append(hmax_ref.index_select(0, idx))
+            hits_r = torch.cat(hit_parts, 0)
+            hmax_r = torch.cat(hmax_parts, 0)
+            res = hstar_retry(
+                self.host.device,
+                hits_r,
+                hmax_r,
+                sel_ctx["pt"],
+                sel_ctx["xt"],
+                self._t(sel_ctx["qtok"][grows]),
+                self._t(sel_ctx["qlens"][grows]),
+                self._t(sel_ctx["nqg"][grows]),
+                self._t(sel_ctx["use_short"][grows]),
+                self._t(sel_ctx["promo_all"][grows]),
+                self._t(sel_ctx["promo_t"][grows]),
+                self._t(sel_ctx["promo_w"][grows]),
+                self._t(lim_arr),
+                np.float32(threshold),
+                compute_short=sel_ctx["compute_short"],
+                kb1=self.HSTAR_KB1 * scale,
+                kb2=self.HSTAR_KB2 * scale,
+                n_cand=n_cand,
+                top_k=sel_ctx["top_k"],
+                n_edge=sel_ctx["n_edge"],
+                vmax=sel_ctx["vmax"],
+            )
+            block = _pack(res[0], res[1], res[2], res[4])
+        fetched = _fetch([block])
+        with span("sslib.emit"):
+            counts, ids_b, scores_b, exact = _unpack(
+                fetched, int(res[1].shape[1]), True
+            )
+            still = []
+            for pos, fi in enumerate(order):
+                item = fails[fi][0]
+                if exact[pos]:
+                    self._emit_row(
+                        out, item[0], counts[pos], ids_b[pos], scores_b[pos],
+                        limit,
+                    )
+                else:
+                    still.append(item)
         return still
 
     def _gather_rows_plan(self, slots: np.ndarray):
@@ -1027,7 +1084,6 @@ class SearchEngine:
             "step": step,
             "n_cand": n_cand,
             "block_sel": block_sel,
-            "approx_sel": False,
         }
         hs_kw = dict(hstar=True, kb1=hs_kb1, kb2=hs_kb2, hs_fill=hs_fill)
         bm_slots = slots
@@ -1046,13 +1102,8 @@ class SearchEngine:
             bm_table = bm[0]
             self.last_routing.update(
                 gp_rows=int(bm_table.shape[1]),
-                gtile=False,
                 fused_bmax=bool(bm_fused and not bm_gather),
-                bmax_blk=int(self.BITMAP_BMAX_BLK),
-                compact_rows=0,
-                virtual=False,
                 hstar=bool(bm_hstar),
-                pair_dots=False,
             )
             bm_scan = variant == "bitmap_scan"
             if bm_gather:
@@ -1116,35 +1167,38 @@ class SearchEngine:
                 np.float32(threshold),
             )
 
-        promo_all = np.full((b_all, self.PROMO_KEYS), -1, dtype=np.int32)
-        for r, item in enumerate(items):
-            pids = item[3]
-            promo_all[r, : pids.size] = pids
-        promo_t, promo_w = self._promo_tables(promo_all)
+        with span("sslib.prep"):
+            promo_all = np.full((b_all, self.PROMO_KEYS), -1, dtype=np.int32)
+            for r, item in enumerate(items):
+                pids = item[3]
+                promo_all[r, : pids.size] = pids
+            promo_t, promo_w = self._promo_tables(promo_all)
 
         # every chunk is queued before any result is fetched; the batch's
         # arrays go to the device once and chunks slice them there
-        qtok_d = self._t(qtok)
-        qlens_d = self._t(qlens)
-        slots_d = self._t(bm_slots)
-        nqg_d = self._t(nqg)
-        ushort_d = self._t(use_short)
-        promo_d = self._t(promo_all)
-        promo_t_d = self._t(promo_t)
-        promo_w_d = self._t(promo_w)
-        # the gathered route pads its chunks to 8 queries, tiny runs to a
-        # power of two from 1, the others to 16
-        min_b = 1 if tiny_runs else (8 if bm_gather else 16)
-        pending = []
-        for lo in range(0, len(items), step):
-            hi = min(lo + step, len(items))
-            b = _next_pow2(hi - lo, min(step, min_b))
-            lim_d = torch.full(
-                (b,), min(limit, 2**30), dtype=torch.int32, device=self.device
-            )
-            res = front(slice(lo, lo + b), lim_d)
-            block = _pack(res[0], res[1], res[2], res[4])
-            pending.append((lo, hi, block, res[5:] if keep_sel else None))
+        with span("sslib.dispatch"):
+            qtok_d = self._t(qtok)
+            qlens_d = self._t(qlens)
+            slots_d = self._t(bm_slots)
+            nqg_d = self._t(nqg)
+            ushort_d = self._t(use_short)
+            promo_d = self._t(promo_all)
+            promo_t_d = self._t(promo_t)
+            promo_w_d = self._t(promo_w)
+            # the gathered route pads its chunks to 8 queries, tiny runs to
+            # a power of two from 1, the others to 16
+            min_b = 1 if tiny_runs else (8 if bm_gather else 16)
+            pending = []
+            for lo in range(0, len(items), step):
+                hi = min(lo + step, len(items))
+                b = _next_pow2(hi - lo, min(step, min_b))
+                lim_d = torch.full(
+                    (b,), min(limit, 2**30), dtype=torch.int32,
+                    device=self.device,
+                )
+                res = front(slice(lo, lo + b), lim_d)
+                block = _pack(res[0], res[1], res[2], res[4])
+                pending.append((lo, hi, block, res[5:] if keep_sel else None))
 
         # ONE fetch for every chunk
         fetched = _fetch([blk for _, _, blk, _ in pending])
@@ -1152,20 +1206,22 @@ class SearchEngine:
         retry = []
         fails = []
         row0 = 0
-        for k, (lo, hi, blk, _) in enumerate(pending):
-            counts, ids_b, scores_b, exact = _unpack(
-                fetched[row0 : row0 + blk.shape[0]], width, True
-            )
-            row0 += blk.shape[0]
-            for r, item in enumerate(items[lo:hi]):
-                if exact[r]:
-                    self._emit_row(
-                        out, item[0], counts[r], ids_b[r], scores_b[r], limit
-                    )
-                else:
-                    retry.append(item)
-                    if keep_sel:
-                        fails.append((item, k, r, lo + r))
+        with span("sslib.emit"):
+            for k, (lo, hi, blk, _) in enumerate(pending):
+                counts, ids_b, scores_b, exact = _unpack(
+                    fetched[row0 : row0 + blk.shape[0]], width, True
+                )
+                row0 += blk.shape[0]
+                for r, item in enumerate(items[lo:hi]):
+                    if exact[r]:
+                        self._emit_row(
+                            out, item[0], counts[r], ids_b[r], scores_b[r],
+                            limit,
+                        )
+                    else:
+                        retry.append(item)
+                        if keep_sel:
+                            fails.append((item, k, r, lo + r))
         sel_ctx = None
         if keep_sel and fails:
             sel_ctx = {

@@ -6,12 +6,17 @@ PyTorch counterpart of ``stringsearchlib_tpu.utils.metrics``:
     terms, grams, postings, bytes of its tensors on the device);
   * :class:`QueryMetrics` - a latency reservoir attached to a SearchEngine
     (enable with ``engine.metrics = QueryMetrics()``), giving count / qps /
-    p50 / p99;
+    p50 / p99, and the sums of the engine's per-call counters (rows that
+    went dense, rows retried);
+  * :func:`span` - the engine's host spans (``sslib.<layer>``), recorded
+    by ``torch.profiler`` when it is on, on the clock of the card's
+    kernels and copies;
   * :func:`profile` - context manager around ``torch.profiler`` writing a
     trace directory (a Chrome/TensorBoard ``*.pt.trace.json``) with host
     spans and, on a card, its kernels.
 
-Everything here is optional and adds no overhead when unused.
+Everything here is optional: with no profiler running a span costs about
+half a microsecond, and the rest nothing when unused.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch.autograd.profiler as _autograd_profiler
+from torch._C._profiler import _RecordFunctionFast
 
 logger = logging.getLogger("stringsearchlib_tpu_torch")
 
@@ -56,23 +63,44 @@ def index_stats(host) -> dict:
     }
 
 
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A host span ``name`` around a block, recorded when torch.profiler is
+    on (``profile`` below, or any ``torch.profiler.profile``) and a shared
+    no-op otherwise.
+
+    Recorded as a plain CPU op, not a user annotation: the profiler copies
+    user annotations onto the card's timeline, where they would read as
+    device activity."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _RecordFunctionFast(name)
+    return _OFF
+
+
 class QueryMetrics:
     """Rolling query latency/throughput counters.
 
     A bounded reservoir of per-query wall latencies; percentile reads are
-    O(window).  Counter updates take a lock (the registry supports
-    concurrent readers, and ``count += n`` is not atomic)."""
+    O(window).  ``calls`` sums the engine's per-call counters
+    (``SearchEngine.last_routing["call"]``).  Counter updates take a lock
+    (the registry supports concurrent readers, and ``count += n`` is not
+    atomic)."""
 
     def __init__(self, window: int = 4096):
         self._lock = threading.Lock()
         self._lat = collections.deque(maxlen=window)
         self.count = 0
         self.batched_queries = 0
+        self.calls = collections.Counter()
         self._t_start = time.perf_counter()
 
-    def record(self, seconds: float, queries: int = 1) -> None:
+    def record(self, seconds: float, queries: int = 1, call: Optional[dict] = None) -> None:
         with self._lock:
             self.count += queries
+            if call:
+                self.calls.update(call)
             if queries > 1:
                 self.batched_queries += queries
                 per = seconds / queries
@@ -86,12 +114,20 @@ class QueryMetrics:
         with self._lock:
             lat = np.array(self._lat, dtype=np.float64)
             count = self.count
+            calls = dict(self.calls)
         elapsed = max(time.perf_counter() - self._t_start, 1e-9)
         out = {
             "queries": count,
             "queries_per_sec": count / elapsed,
             "window": int(lat.size),
         }
+        # rows answered by the dense path, and rows whose first candidate
+        # pass failed its exactness guard: left out until a call counts
+        # them (the sharded engines count neither)
+        if "dense_rows" in calls:
+            out["dense_rows"] = calls["dense_rows"]
+        if "retry_fast" in calls:
+            out["retried_rows"] = calls["retry_fast"]
         if lat.size:
             out["p50_ms"] = float(np.percentile(lat, 50) * 1e3)
             out["p99_ms"] = float(np.percentile(lat, 99) * 1e3)
@@ -103,6 +139,7 @@ class QueryMetrics:
             self._lat.clear()
             self.count = 0
             self.batched_queries = 0
+            self.calls.clear()
             self._t_start = time.perf_counter()
 
 

@@ -43,6 +43,8 @@ def test_query_metrics_single_and_batch():
     assert snap["p50_ms"] >= 0.0
     assert snap["queries_per_sec"] > 0
     assert m.batched_queries == 2
+    # the engine's call counters, summed: this small index answers densely
+    assert snap["dense_rows"] == 3 and snap["retried_rows"] == 0
     m.reset()
     assert m.snapshot()["queries"] == 0
 
@@ -81,3 +83,6 @@ def test_profile_writes_a_trace(tmp_path):
     assert len(files) == 1 and files[0].endswith(".pt.trace.json")
     trace = json.load(open(trace_dir / files[0]))
     assert any(e.get("ph") == "X" for e in trace["traceEvents"])
+    # the engine's own spans, the public call's root among them
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"sslib.search_batch", "sslib.front", "sslib.fetch"} <= names
