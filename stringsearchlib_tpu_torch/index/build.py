@@ -39,38 +39,43 @@ class KeyStrings:
         self.tokens = tokens
         self.lengths = lengths
         self.wide = wide
-        self._cache: dict[int, str] = {}
+        # keys whose last code point is U+0000, which a numpy "U" view
+        # strips: take_flat decodes these one by one (usually none)
+        ended = lengths > 0
+        if tokens.shape[1]:
+            last = np.maximum(lengths.astype(np.int64) - 1, 0)[:, None]
+            ended &= np.take_along_axis(tokens, last, axis=1)[:, 0] == 0
+        self.nul_ended = np.flatnonzero(ended)
 
     def __len__(self) -> int:
         return self.tokens.shape[0]
 
     def __getitem__(self, i: int) -> str:
         i = int(i)
-        s = self._cache.get(i)
-        if s is None:
-            s = textlib.decode_row(self.tokens[i], int(self.lengths[i]), self.wide)
-            self._cache[i] = s
-        return s
+        return textlib.decode_row(self.tokens[i], int(self.lengths[i]), self.wide)
 
-    def take(self, ids) -> list:
-        """Decode many rows at once: one gather + one bytes conversion."""
+    def take_flat(self, ids) -> tuple[list, int]:
+        """Decode the keys ``ids`` (a flat array) at once: one gather, one
+        widen to code points and one ``tolist`` of their "U" view, which
+        is ``decode("latin-1")`` of narrow tokens and ``decode("utf-32-le")``
+        of wide ones.  Returns the keys and how many were decoded one by
+        one (those ending in U+0000)."""
         ids = np.asarray(ids, dtype=np.int64)
-        toks = self.tokens[ids]
         lens = self.lengths[ids]
-        w = self.tokens.shape[1]
-        if self.wide:
-            buf = toks.astype(np.uint32).tobytes()
-            return [
-                buf[i * 4 * w : i * 4 * w + 4 * int(lens[i])].decode(
-                    "utf-32-le"
-                )
-                for i in range(ids.shape[0])
-            ]
-        buf = toks.astype(np.uint8).tobytes()
-        return [
-            buf[i * w : i * w + int(lens[i])].decode("latin-1")
-            for i in range(ids.shape[0])
-        ]
+        w = int(lens.max()) if ids.size else 0
+        if w == 0:
+            return [""] * ids.size, 0
+        toks = np.take(self.tokens, ids, axis=0)[:, :w]
+        toks *= np.arange(w, dtype=lens.dtype) < lens[:, None]
+        keys = (
+            np.ascontiguousarray(toks, dtype="<u4").view(f"<U{w}").ravel().tolist()
+        )
+        slow = 0
+        if self.nul_ended.size:
+            for i in np.flatnonzero(np.isin(ids, self.nul_ended)).tolist():
+                keys[i] = self[ids[i]]
+                slow += 1
+        return keys, slow
 
     def tolist(self) -> list:
         return [self[i] for i in range(len(self))]

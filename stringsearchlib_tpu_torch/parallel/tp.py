@@ -326,12 +326,7 @@ class GramShardedEngine(SearchEngine):
             res = tp_wildcard_step(self.mesh, self._leaves(), top_k=top_k)
             cached = _unpack(_fetch([_pack(*res)]), int(res[1].shape[1]))
             self._wild_cache[top_k] = cached
-        count, ids_np, scores_np = cached
-        n = min(int(count[0]), limit, int(ids_np.shape[1]))
-        return (
-            [self.host.key_strings[i] for i in ids_np[0, :n]],
-            [float(s) for s in scores_np[0, :n]],
-        )
+        return self._emit_one(*cached, limit)
 
     def _s_cap(self, slots, nn) -> int:
         """Static lane bound = max over shards of any query's LOCAL distinct
@@ -454,18 +449,20 @@ class GramShardedEngine(SearchEngine):
         width = (fetched.shape[1] - 2) // 2
         retry = []
         row0 = 0
+        counts, ids_b, scores_b, exact = _unpack(fetched, width, True)
+        exact = exact.tolist()
+        rows, positions = [], []
         for lo, hi, blk in pending:
-            counts, ids_b, scores_b, exact = _unpack(
-                fetched[row0 : row0 + blk.shape[0]], width, True
-            )
-            row0 += blk.shape[0]
             for r, item in enumerate(items[lo:hi]):
-                if exact[r]:
-                    self._emit_row(
-                        out, item[0], counts[r], ids_b[r], scores_b[r], limit
-                    )
+                if exact[row0 + r]:
+                    rows.append(row0 + r)
+                    positions.append(item[0])
                 else:
                     retry.append(item)
+            row0 += blk.shape[0]
+        self._emit_rows(
+            out, positions, counts[rows], ids_b[rows], scores_b[rows], limit
+        )
         return retry
 
     def _run_tp_dense(self, items, threshold, limit, batch_bucket, out,

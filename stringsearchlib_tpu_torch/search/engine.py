@@ -62,7 +62,7 @@ _SCAN_LANE_BYTES = 17
 # over every query-width group, pass and tier of one public call: the
 # queries, the rows whose first candidate pass failed its exactness guard,
 # and the rows the dense path answered
-_CALL_KEYS = ("queries", "retry_fast", "dense_rows")
+_CALL_KEYS = ("queries", "retry_fast", "dense_rows", "emit_slow_keys")
 
 
 def _next_pow2(n: int, lo: int) -> int:
@@ -401,13 +401,8 @@ class SearchEngine:
                     min(top_k, di.n_keys),
                 )
                 self._wildcard_cache[top_k] = cached
-            count, ids_np, scores_np = cached
-            n = min(int(count[0]), limit, int(ids_np.shape[1]))
             with span("sslib.emit"):
-                return (
-                    [self.host.key_strings[i] for i in ids_np[0, :n]],
-                    [float(s) for s in scores_np[0, :n]],
-                )
+                return self._emit_one(*cached, limit)
         with span("sslib.front"):
             qnorm, qlen = self._normalize_query(raw)
         if qlen == 0:
@@ -455,11 +450,8 @@ class SearchEngine:
             block = _pack(*res)
         fetched = _fetch([block])
         with span("sslib.emit"):
-            count, ids_np, scores_np = _unpack(fetched, int(res[1].shape[1]))
-            n = min(int(count[0]), limit, int(ids_np.shape[1]))
-            return (
-                [self.host.key_strings[i] for i in ids_np[0, :n]],
-                [float(s) for s in scores_np[0, :n]],
+            return self._emit_one(
+                *_unpack(fetched, int(res[1].shape[1])), limit
             )
 
     # -- batched search ----------------------------------------------------
@@ -620,15 +612,17 @@ class SearchEngine:
             return
         block = _fetch([blk for _, _, blk in pending])
         width = (block.shape[1] - 1) // 2
-        lo = 0
         with span("sslib.emit"):
+            counts, ids_b, scores_b = _unpack(block, width)
+            rows, positions = [], []
+            lo = 0
             for chunk, b, _ in pending:
-                counts, ids_b, scores_b = _unpack(block[lo : lo + b], width)
+                rows.extend(range(lo, lo + len(chunk)))
+                positions.extend(item[0] for item in chunk)
                 lo += b
-                for r, item in enumerate(chunk):
-                    self._emit_row(
-                        out, item[0], counts[r], ids_b[r], scores_b[r], limit
-                    )
+            self._emit_rows(
+                out, positions, counts[rows], ids_b[rows], scores_b[rows], limit
+            )
 
     # device-memory budget for per-batch intermediates: batch sizes shrink
     # as the index grows (the reference's value)
@@ -725,12 +719,28 @@ class SearchEngine:
                 promo[r, : pids.size] = pids
             return promo
 
-    def _emit_row(self, out, pos, count, ids_row, scores_row, limit):
-        n = min(int(count), limit, ids_row.shape[0])
-        out[pos] = (
-            self.host.key_strings.take(ids_row[:n]),
-            scores_row[:n].astype(np.float64).tolist(),
-        )
+    def _emit_rows(self, out, positions, counts, ids_b, scores_b, limit):
+        """Results of the rows of one fetch (``positions[r]`` answered by
+        row r): one key decode and one score conversion for them all,
+        then ``_emit_row`` per row with its slices."""
+        n = np.clip(counts, 0, min(limit, ids_b.shape[1]))
+        kept = np.arange(ids_b.shape[1]) < n[:, None]
+        keys, slow = self.host.key_strings.take_flat(ids_b[kept])
+        self._call["emit_slow_keys"] += slow
+        scores = scores_b[kept].astype(np.float64).tolist()
+        lo = 0
+        for pos, hi in zip(positions, np.cumsum(n).tolist()):
+            self._emit_row(out, pos, keys[lo:hi], scores[lo:hi])
+            lo = hi
+
+    def _emit_row(self, out, pos, keys, scores):
+        out[pos] = (keys, scores)
+
+    def _emit_one(self, count, ids_np, scores_np, limit):
+        """The results of a single query: row 0 of a fetched block."""
+        out = [None]
+        self._emit_rows(out, [0], count[:1], ids_np[:1], scores_np[:1], limit)
+        return out[0]
 
     def _run_dense_chunks(self, items, threshold, limit, batch_bucket, qp, out):
         self._call["dense_rows"] += len(items)
@@ -906,16 +916,18 @@ class SearchEngine:
             counts, ids_b, scores_b, exact = _unpack(
                 fetched, int(res[1].shape[1]), True
             )
-            still = []
+            exact = exact.tolist()
+            rows, positions, still = [], [], []
             for pos, fi in enumerate(order):
                 item = fails[fi][0]
                 if exact[pos]:
-                    self._emit_row(
-                        out, item[0], counts[pos], ids_b[pos], scores_b[pos],
-                        limit,
-                    )
+                    rows.append(pos)
+                    positions.append(item[0])
                 else:
                     still.append(item)
+            self._emit_rows(
+                out, positions, counts[rows], ids_b[rows], scores_b[rows], limit
+            )
         return still
 
     def _gather_rows_plan(self, slots: np.ndarray):
@@ -1207,21 +1219,22 @@ class SearchEngine:
         fails = []
         row0 = 0
         with span("sslib.emit"):
+            counts, ids_b, scores_b, exact = _unpack(fetched, width, True)
+            exact = exact.tolist()
+            rows, positions = [], []
             for k, (lo, hi, blk, _) in enumerate(pending):
-                counts, ids_b, scores_b, exact = _unpack(
-                    fetched[row0 : row0 + blk.shape[0]], width, True
-                )
-                row0 += blk.shape[0]
                 for r, item in enumerate(items[lo:hi]):
-                    if exact[r]:
-                        self._emit_row(
-                            out, item[0], counts[r], ids_b[r], scores_b[r],
-                            limit,
-                        )
+                    if exact[row0 + r]:
+                        rows.append(row0 + r)
+                        positions.append(item[0])
                     else:
                         retry.append(item)
                         if keep_sel:
                             fails.append((item, k, r, lo + r))
+                row0 += blk.shape[0]
+            self._emit_rows(
+                out, positions, counts[rows], ids_b[rows], scores_b[rows], limit
+            )
         sel_ctx = None
         if keep_sel and fails:
             sel_ctx = {

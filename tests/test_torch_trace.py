@@ -21,7 +21,7 @@ from stringsearchlib_tpu_torch.search.engine import SearchEngine
 from stringsearchlib_tpu_torch.utils import metrics
 
 CHILDREN = ("sslib.front", "sslib.prep", "sslib.dispatch", "sslib.fetch", "sslib.emit")
-CALL_KEYS = {"queries", "retry_fast", "dense_rows"}
+CALL_KEYS = {"queries", "retry_fast", "dense_rows", "emit_slow_keys"}
 
 
 def _corpus(n, seed):
