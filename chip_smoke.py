@@ -276,6 +276,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import functools
 import json
 import math
@@ -1453,6 +1454,18 @@ def _k6_host(gram_terms, dev) -> dict:
     return {k: _mean(v) for k, v in res.items()} | {"turns_us": res}
 
 
+@contextlib.contextmanager
+def _eager(engine):
+    """``engine``'s chains run eagerly for the ``with`` block: no graph is
+    captured or replayed, so every kernel wrapper is called by name (and
+    can be spied on or rebound) as the chain runs."""
+    graphs, engine._graphs = engine._graphs, None
+    try:
+        yield
+    finally:
+        engine._graphs = graphs
+
+
 def _recorded_calls(mod, name: str, run) -> list:
     """``run()`` with ``mod.<name>`` spied on: the arguments of every call
     it got, top-level tensors cloned (the engine may reuse its buffers)."""
@@ -1475,7 +1488,8 @@ def _recorded_calls(mod, name: str, run) -> list:
 def _route_kernels(engine, run) -> dict:
     """K5 and K6 at a runs route's real shapes: the operands that the first
     candidate pass of ``run()`` hands to the short tier's ``dp_match`` and
-    to ``expand_postings``, recorded as they are passed; each kernel
+    to ``expand_postings``, recorded as they are passed on the eager chain
+    (whose results equal a graphed ``run()``'s); each kernel
     against its plain version, bit for bit, with CUDA-event and device
     times, the bounds, and K5's launch plan; the expansion against the old
     path (``_expand_case``), and the gather kernel at the old path's
@@ -1485,9 +1499,12 @@ def _route_kernels(engine, run) -> dict:
     from stringsearchlib_tpu_torch.ops import vgather as k6
     from stringsearchlib_tpu_torch.search import candidates
 
-    k6_calls = []
-    dp_calls = _recorded_calls(candidates, "dp_match", lambda: k6_calls.extend(
-        _recorded_calls(candidates, "expand_postings", run)))
+    k6_calls, eager = [], []
+    with _eager(engine):
+        dp_calls = _recorded_calls(candidates, "dp_match", lambda: k6_calls.extend(
+            _recorded_calls(candidates, "expand_postings", lambda: eager.append(run()))))
+    if eager[0] != run():
+        raise AssertionError("the runs route's graphed results differ from its eager chain's")
     if not dp_calls or not k6_calls:
         raise AssertionError(f"the route made {len(dp_calls)} short-tier DP and "
                              f"{len(k6_calls)} expansion calls")
@@ -1612,17 +1629,24 @@ def _tiny_queries(words):
 def _expansion_operands(engine, allq, desc, threshold, limit):
     """The arguments ``expand_postings`` is handed by the dense path's
     ``gather_hits`` over ``allq`` (its first chunk), by a single query
-    ``desc[0]`` and by a batch ``desc[:8]`` on tiny_runs, recorded: ({name:
-    args}, the dense path's results, its expansion calls)."""
+    ``desc[0]`` and by a batch ``desc[:8]`` on tiny_runs, recorded on the
+    eager chain, whose results equal the graphed calls': ({name: args}, the
+    dense path's results, its expansion calls)."""
     from stringsearchlib_tpu_torch.search import candidates, overlap
 
-    dense = []
-    dense_calls = _recorded_calls(overlap, "expand_postings", lambda: dense.extend(
-        engine.search_batch(allq, threshold, limit, batch_bucket=512, mode="dense")))
-    single_calls = _recorded_calls(candidates, "expand_postings",
-                                   lambda: engine.search(desc[0], threshold, limit))
-    batch_calls = _recorded_calls(candidates, "expand_postings",
-                                  lambda: engine.search_batch(desc[:8], threshold, limit))
+    calls = (
+        lambda: engine.search_batch(allq, threshold, limit, batch_bucket=512, mode="dense"),
+        lambda: engine.search(desc[0], threshold, limit),
+        lambda: engine.search_batch(desc[:8], threshold, limit),
+    )
+    eager = []
+    with _eager(engine):
+        dense_calls, single_calls, batch_calls = [
+            _recorded_calls(mod, "expand_postings", lambda c=c: eager.append(c()))
+            for mod, c in zip((overlap, candidates, candidates), calls)]
+    if [c() for c in calls] != eager:
+        raise AssertionError("graphed expansions' results differ from the eager chain's")
+    dense = eager[0]
     if not (dense_calls and single_calls and batch_calls):
         raise AssertionError(f"recorded expansions: dense {len(dense_calls)}, single "
                              f"{len(single_calls)}, batch of 8 {len(batch_calls)}")
@@ -1749,8 +1773,10 @@ def _brute_2d(engine, words, threshold, limit, dev):
     from stringsearchlib_tpu_torch.search import candidates, editdist
     from stringsearchlib_tpu_torch.search import engine as enginemod
 
-    # the same search recomputed without K5
-    with _bound_as((candidates, editdist, enginemod), "dp_match", k5.dp_match_ref):
+    # the same search recomputed without K5 (on the eager chain: a graph
+    # replays the kernel it captured)
+    with _eager(engine), _bound_as((candidates, editdist, enginemod), "dp_match",
+                                   k5.dp_match_ref):
         want = [engine.search_batch([q], threshold, limit)[0] for q in queries]
     _same_groups(got, want, "brute tier: K5 vs the plain DP")
     _check_results(got, queries, threshold * 0.4 * (1 - 1e-6), limit)

@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import torch
 
-from .kernels import lib as _lib
+from .kernels import count_launches, lib as _lib
 
 BLKB = 512
 TILE_LANES = 8 * BLKB
@@ -171,7 +171,7 @@ def bitmap_hits_bmax(qcnt, planes):
     per-128-term block maxima).
 
     CUDA tensors launch the K1 kernel; CPU tensors run the plain version."""
-    global K1_LAUNCHES, K1_REF_CALLS
+    global K1_REF_CALLS
     _check(qcnt, planes)
     if planes.device.type == "cpu":
         K1_REF_CALLS += 1
@@ -197,7 +197,7 @@ def bitmap_hits_bmax(qcnt, planes):
         )
     if err != 0:
         raise RuntimeError(f"bitmap_hits_bmax kernel launch failed: cuda error {err}")
-    K1_LAUNCHES += 1
+    count_launches(globals(), "K1_LAUNCHES")
     return hits, bmax
 
 
@@ -209,7 +209,7 @@ def bitmap_hits(qcnt, planes):
     ``bitmap_hits``).
 
     CUDA tensors launch the K2 kernel; CPU tensors run the plain version."""
-    global K2_LAUNCHES, K2_REF_CALLS
+    global K2_REF_CALLS
     _check(qcnt, planes)
     if planes.device.type == "cpu":
         K2_REF_CALLS += 1
@@ -232,7 +232,7 @@ def bitmap_hits(qcnt, planes):
         )
     if err != 0:
         raise RuntimeError(f"bitmap_hits kernel launch failed: cuda error {err}")
-    K2_LAUNCHES += 1
+    count_launches(globals(), "K2_LAUNCHES")
     return hits
 
 
@@ -288,7 +288,7 @@ def bitmap_hits_wide(qcnt, planes):
     CUDA tensors launch the K2w kernel once per part of ``_wide_parts``
     (the first part stores, each later one adds into the hits in place);
     CPU tensors run the plain version once per part."""
-    global K2W_LAUNCHES, K2W_REF_CALLS
+    global K2W_REF_CALLS
     top, width = _check_wide(qcnt, planes)
     if planes.device.type == "cpu":
         hits = None
@@ -314,7 +314,7 @@ def bitmap_hits_wide(qcnt, planes):
             )
         if err != 0:
             raise RuntimeError(f"bitmap_hits_wide kernel launch failed: cuda error {err}")
-        K2W_LAUNCHES += 1
+        count_launches(globals(), "K2W_LAUNCHES")
     return hits
 
 
@@ -374,7 +374,7 @@ def gather_rows(planes, rows):
 
     CUDA tensors launch the gather kernel (csrc/gather_rows.cu); CPU
     tensors run the plain version."""
-    global G_LAUNCHES, G_REF_CALLS
+    global G_REF_CALLS
     if planes.ndim not in (2, 3):
         raise ValueError(f"planes must be (G, NB) or (ntiles, G, {BLKB}), "
                          f"got {tuple(planes.shape)}")
@@ -400,9 +400,12 @@ def gather_rows(planes, rows):
     if outer == 0 or gc == 0 or c == 0:
         return out
     rows32 = rows.to(torch.int32).contiguous()
-    lo, hi = (int(v) for v in torch.aminmax(rows32))  # the kernel reads rows unchecked
-    if lo < 0 or hi >= g:
-        raise IndexError(f"rows must lie in [0, {g}), got [{lo}, {hi}]")
+    # the kernel reads rows unchecked; a captured chain reads nothing back,
+    # and its caller builds the rows in range on the host
+    if not torch.cuda.is_current_stream_capturing():
+        lo, hi = (int(v) for v in torch.aminmax(rows32))
+        if lo < 0 or hi >= g:
+            raise IndexError(f"rows must lie in [0, {g}), got [{lo}, {hi}]")
     lib = _lib("gather_rows")
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
@@ -412,7 +415,7 @@ def gather_rows(planes, rows):
         )
     if err != 0:
         raise RuntimeError(f"gather_rows kernel launch failed: cuda error {err}")
-    G_LAUNCHES += 1
+    count_launches(globals(), "G_LAUNCHES")
     return out
 
 

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from .kernels import lib as _lib
+from .kernels import count_launches, lib as _lib
 
 # launches of the CUDA kernel, and calls of its plain version made by the
 # wrapper for CPU tensors; plain integers that callers may reset
@@ -95,7 +95,7 @@ def dp_match(tokens, lengths, qtokens, qlen):
     """(B, N) int32 match counts: qlen - semi-global edit distance.
 
     CUDA tensors launch the K5 kernel; CPU tensors run the plain version."""
-    global K5_LAUNCHES, K5_REF_CALLS
+    global K5_REF_CALLS
     if tokens.ndim != 2 or qtokens.ndim != 2:
         raise ValueError(f"tokens {tuple(tokens.shape)} and qtokens "
                          f"{tuple(qtokens.shape)} must be 2-D")
@@ -138,5 +138,5 @@ def dp_match(tokens, lengths, qtokens, qlen):
         )
     if err != 0:
         raise RuntimeError(f"dp_match kernel launch failed: cuda error {err}")
-    K5_LAUNCHES += 1
+    count_launches(globals(), "K5_LAUNCHES")
     return out

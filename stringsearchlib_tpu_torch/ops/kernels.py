@@ -7,10 +7,15 @@ source is compiled with nvcc for sm_90a into ``build/kernels/lib<name>.so``
 than the library), one nvcc process per source, all started together, at
 the first launch of any kernel; the libraries are bound with ctypes.
 Nothing here runs when the package is imported.
+
+The wrappers count their launches in module counters (``*_LAUNCHES``)
+through ``count_launches``, which a chain being captured into a CUDA
+graph (``search.graphs``) diverts into the graph's own tally.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import re
@@ -23,6 +28,8 @@ _CSRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "csrc"))
 _OUT_DIR = os.path.join(_ROOT, "build", "kernels")
 _LIBS: dict = {}
 _LIB_LOCK = threading.Lock()
+# the launch tally of the chain this thread is capturing, if any
+_CAPTURE = threading.local()
 
 _P, _I, _LL, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint32
 
@@ -64,6 +71,32 @@ ARGTYPES = {
         "expand_postings_launch": [_P] * 4 + [_LL, _LL, _I, _I, _LL, _U32, _P],
     },
 }
+
+
+def count_launches(scope: dict, name: str, n: int = 1) -> None:
+    """``n`` launches added to the counter ``name`` of the module whose
+    globals are ``scope`` - or, while this thread captures a chain
+    (``capturing``), to the capture's tally: a capture launches nothing,
+    and its graph adds the tally at each replay.  Counters moved by other
+    threads, other engines' chains included, are never touched here."""
+    tally = getattr(_CAPTURE, "tally", None)
+    if tally is None:
+        scope[name] += n
+    else:
+        key = (scope["__name__"], name)
+        tally[key] = tally.get(key, 0) + n
+
+
+@contextlib.contextmanager
+def capturing():
+    """This thread's launches counted into a fresh tally, yielded as
+    {(module name, counter name): launches}, instead of their counters."""
+    tally: dict = {}
+    _CAPTURE.tally = tally
+    try:
+        yield tally
+    finally:
+        _CAPTURE.tally = None
 
 
 def source_mtime(src: str) -> float:

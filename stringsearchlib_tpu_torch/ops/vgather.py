@@ -29,7 +29,7 @@ import struct
 
 import torch
 
-from .kernels import lib as _lib
+from .kernels import count_launches, lib as _lib
 
 # launches of either entry of csrc/gather_tables.cu, and calls of a plain
 # version made by a wrapper for CPU tensors; EXPAND_LAUNCHES counts the
@@ -143,7 +143,7 @@ def gather_tables(idx, tables, fills):
     CUDA tensors launch the K6 kernel's one pass (blocks over the rows'
     chunks, the row fastest: ``_grid_rows``); CPU tensors run the plain
     version."""
-    global K6_LAUNCHES, K6_REF_CALLS
+    global K6_REF_CALLS
     if not isinstance(tables, (list, tuple)):
         tables = list(tables)
     if not isinstance(fills, (list, tuple)):
@@ -183,7 +183,7 @@ def gather_tables(idx, tables, fills):
             err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"gather_tables kernel launch failed: cuda error {err}")
-    K6_LAUNCHES += 1
+    count_launches(globals(), "K6_LAUNCHES")
     return outs
 
 
@@ -229,7 +229,7 @@ def expand_postings(gram_ptr, gram_terms, slots, s_cap: int, fill: int):
 
     CUDA tensors launch the expansion kernel, once per call; CPU tensors
     run the plain version."""
-    global K6_LAUNCHES, K6_REF_CALLS, EXPAND_LAUNCHES
+    global K6_REF_CALLS
     if not gram_ptr.dtype == gram_terms.dtype == slots.dtype == torch.int32:
         raise TypeError(f"gram_ptr, gram_terms and slots must be int32, got "
                         f"{gram_ptr.dtype}, {gram_terms.dtype}, {slots.dtype}")
@@ -272,6 +272,6 @@ def expand_postings(gram_ptr, gram_terms, slots, s_cap: int, fill: int):
                 *args, torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"expand_postings kernel launch failed: cuda error {err}")
-    K6_LAUNCHES += 1
-    EXPAND_LAUNCHES += 1
+    count_launches(globals(), "K6_LAUNCHES")
+    count_launches(globals(), "EXPAND_LAUNCHES")
     return out

@@ -66,6 +66,7 @@ import numpy as np
 import torch
 
 from ..config import PERFECT_SCORE_CUTOFF, PROMOTED_SCORE
+from ..ops.kernels import count_launches
 from ..ops.vgather import expand_postings
 from .editdist import dp_match
 
@@ -77,12 +78,16 @@ _BLK = 128  # selection block width
 _TOPK_CHUNK = 1 << 15
 
 
-def _f32(x) -> float:
+def _f32(x):
     """``x`` rounded to float32, as a Python scalar.  Torch casts a Python
     scalar to a float32 operand's dtype, so every score, bound and
     threshold stays float32 (a float64 operand would move ``s >=
     threshold`` at the edges) - and no device tensor is made from a host
-    value, which would wait for the device's queue."""
+    value, which would wait for the device's queue.  A 0-d float32 tensor
+    (the threshold of a captured chain, an input of its graph) is
+    returned as it is: it compares and multiplies in float32 alike."""
+    if isinstance(x, torch.Tensor):
+        return x
     return float(np.float32(x))
 
 
@@ -1001,7 +1006,6 @@ def int_mm_counts(qcnt, mat, vmax: int):
     int8 dot), two up to 16383 (its int32 dot).  Rows pad to a multiple of
     8 past 16, as ``_int_mm`` requires; K and N must be multiples of 8.
     On the CPU one int32 product."""
-    global INT_MM_CALLS
     if mat.device.type == "cpu":
         return qcnt @ mat.to(torch.int32)
     b, k = qcnt.shape
@@ -1013,7 +1017,7 @@ def int_mm_counts(qcnt, mat, vmax: int):
     while True:
         digit = (qcnt // scale) % 128
         h = torch._int_mm(digit.to(torch.int8), mat)
-        INT_MM_CALLS += 1
+        count_launches(globals(), "INT_MM_CALLS")
         hits = h if hits is None else hits.add_(h, alpha=scale)
         rest //= 128
         if rest == 0:

@@ -2,8 +2,10 @@
 
 PyTorch counterpart of ``stringsearchlib_tpu.search.engine``: the host front
 end (normalization, gram-slot lookup, shape bucketing, chunking) is the
-reference's; every device program runs eagerly on the index's device with
-an explicit batch dimension where the reference vmapped.
+reference's; every device program carries an explicit batch dimension where
+the reference vmapped.  On a CUDA device each chunk's program is captured
+once per shape as a CUDA graph and replayed (``search.graphs``); on the CPU
+it runs eagerly.
 
   short DP tier + long gram tier -> per-term scores
   -> threshold gate + weight + segment-max over term->key edges (calcScore,
@@ -48,6 +50,7 @@ from .candidates import (
     candidates_bitmap_mxu, candidates_matmul, candidates_runs, hstar_retry,
 )
 from .editdist import dp_match, dp_match_tiered
+from .graphs import ChainGraphs, chain_key
 from .overlap import gather_hits
 from .sketch import candidates_sketch
 
@@ -61,8 +64,11 @@ _SCAN_LANE_BYTES = 17
 # the per-call counters of SearchEngine.last_routing["call"], each summed
 # over every query-width group, pass and tier of one public call: the
 # queries, the rows whose first candidate pass failed its exactness guard,
-# and the rows the dense path answered
-_CALL_KEYS = ("queries", "retry_fast", "dense_rows", "emit_slow_keys")
+# the rows the dense path answered, the keys decoded one by one, the
+# chunks whose device chain was dispatched, and of them those replayed
+# from a captured graph
+_CALL_KEYS = ("queries", "retry_fast", "dense_rows", "emit_slow_keys",
+              "chunks", "graph_chunks")
 
 
 def _next_pow2(n: int, lo: int) -> int:
@@ -280,6 +286,16 @@ def _pack(count, ids, scores, exact=None):
     return torch.cat(cols, 1)
 
 
+def _dense_chain(impl, di, **kw):
+    """The device chain of a dense chunk: ``impl`` (one of the
+    ``search_*device_impl``) over the chunk's inputs, its result packed."""
+
+    def chain(t, thr):
+        return (_pack(*impl(di, *t, thr, **kw)),)
+
+    return chain
+
+
 def _unpack(block: np.ndarray, top_k: int, with_exact: bool = False):
     counts = block[:, 0]
     ids = block[:, 1 : 1 + top_k]
@@ -319,9 +335,34 @@ class SearchEngine:
         self._call = dict.fromkeys(_CALL_KEYS, 0)
         # optional observability (utils.metrics.QueryMetrics); None = off
         self.metrics = None
+        # the captured chunk chains (on a CUDA device only)
+        self._graphs = (
+            ChainGraphs(self.device) if self.device.type == "cuda" else None
+        )
 
     def _t(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _run_chain(self, fn, arrays, threshold, *, route, tables=(),
+                   dev_arrays=(), graph=True, **flags):
+        """One chunk's device chain ``fn(inputs, thr)`` -> a tuple of device
+        tensors; ``inputs`` are the host ``arrays`` on the device, then
+        ``dev_arrays``.  On a CUDA device it is replayed from the graph
+        captured for its key (``graphs.chain_key``: ``route``, the inputs'
+        shapes, ``tables`` and ``flags``), ``thr`` a device value;
+        elsewhere, with ``graph`` False, or where the key's capture did not
+        fit the device, it runs eagerly, ``thr`` the float32 threshold."""
+        self._call["chunks"] += 1
+        if self._graphs is not None and graph:
+            key = chain_key(route, (*arrays, *dev_arrays), tables, **flags)
+            outs, replayed = self._graphs.run(
+                key, fn, arrays, threshold, dev_arrays, tables
+            )
+            if outs is not None:
+                self._call["graph_chunks"] += int(replayed)
+                return outs
+        return fn([self._t(a) for a in arrays] + list(dev_arrays),
+                  np.float32(threshold))
 
     # -- query prep -----------------------------------------------------
 
@@ -432,26 +473,20 @@ class SearchEngine:
             )
             promo[: pids.size] = pids
         with span("sslib.dispatch"):
-            res = search_device_impl(
-                di,
-                self._t(qtok[None]),
-                self._t(np.array([qlen], np.int32)),
-                self._t(slots[None]),
-                self._t(np.array([n_qgrams], np.int32)),
-                self._t(np.array([use_short])),
-                self._t(promo[None]),
-                np.float32(threshold),
-                compute_short=use_short,
-                brute_long=brute_long,
-                s_cap=s_cap,
-                top_k=top_k,
-                long_buckets=self.host.long_dp_buckets() if brute_long else (),
+            buckets = self.host.long_dp_buckets() if brute_long else ()
+            kw = dict(compute_short=use_short, brute_long=brute_long,
+                      s_cap=s_cap, top_k=top_k, long_buckets=buckets)
+            block, = self._run_chain(
+                _dense_chain(search_device_impl, di, **kw),
+                [qtok[None], np.array([qlen], np.int32), slots[None],
+                 np.array([n_qgrams], np.int32), np.array([use_short]),
+                 promo[None]],
+                threshold, route="dense_single", tables=(di,), **kw,
             )
-            block = _pack(*res)
         fetched = _fetch([block])
         with span("sslib.emit"):
             return self._emit_one(
-                *_unpack(fetched, int(res[1].shape[1])), limit
+                *_unpack(fetched, (fetched.shape[1] - 1) // 2), limit
             )
 
     # -- batched search ----------------------------------------------------
@@ -582,7 +617,7 @@ class SearchEngine:
         step = 1
         while step * 2 <= min(cap, 64):
             step *= 2
-
+        buckets = self.host.long_dp_buckets()
         pending = []
         for lo in range(0, len(items), step):
             chunk = items[lo : lo + step]
@@ -590,20 +625,14 @@ class SearchEngine:
                 chunk, qp, min_b=min(step, 16)
             )
             promo = self._promo_array(chunk, b)
+            kw = dict(s_cap=d_cap, top_k=top_k, long_buckets=buckets)
             with span("sslib.dispatch"):
-                res = search_brute_batch_device_impl(
-                    di,
-                    self._t(qtok),
-                    self._t(qlens),
-                    self._t(slots),
-                    self._t(nqg),
-                    self._t(promo),
-                    np.float32(threshold),
-                    s_cap=d_cap,
-                    top_k=top_k,
-                    long_buckets=self.host.long_dp_buckets(),
+                block, = self._run_chain(
+                    _dense_chain(search_brute_batch_device_impl, di, **kw),
+                    [qtok, qlens, slots, nqg, promo], threshold,
+                    route="brute", tables=(di,), **kw,
                 )
-                pending.append((chunk, b, _pack(*res)))
+                pending.append((chunk, b, block))
         self._emit_dense(pending, limit, out)
 
     def _emit_dense(self, pending, limit, out):
@@ -744,6 +773,7 @@ class SearchEngine:
 
     def _run_dense_chunks(self, items, threshold, limit, batch_bucket, qp, out):
         self._call["dense_rows"] += len(items)
+        di = self.host.device
         top_k = self._top_k(limit)
         batch_bucket = self._batch_cap(batch_bucket)
         pending = []
@@ -753,21 +783,15 @@ class SearchEngine:
                 chunk, qp
             )
             promo = self._promo_array(chunk, b)
+            kw = dict(compute_short=bool(use_short.any()), s_cap=d_cap,
+                      top_k=top_k)
             with span("sslib.dispatch"):
-                res = search_batch_device_impl(
-                    self.host.device,
-                    self._t(qtok),
-                    self._t(qlens),
-                    self._t(slots),
-                    self._t(nqg),
-                    self._t(use_short),
-                    self._t(promo),
-                    np.float32(threshold),
-                    compute_short=bool(use_short.any()),
-                    s_cap=d_cap,
-                    top_k=top_k,
+                block, = self._run_chain(
+                    _dense_chain(search_batch_device_impl, di, **kw),
+                    [qtok, qlens, slots, nqg, use_short, promo], threshold,
+                    route="dense", tables=(di,), **kw,
                 )
-                pending.append((chunk, b, _pack(*res)))
+                pending.append((chunk, b, block))
         self._emit_dense(pending, limit, out)
 
     # device-memory budget for the dense gram->term incidence of the
@@ -878,6 +902,17 @@ class SearchEngine:
             scale = max(self.CAND_TERMS // self.CAND_TERMS_FAST, 1)
             n_lanes = sel_ctx["n_lanes"]
             n_cand = min(self.CAND_TERMS, max(_next_pow2(n_lanes, 16), 16), n_lanes)
+        di, pt, xt = self.host.device, sel_ctx["pt"], sel_ctx["xt"]
+        kw = dict(
+            compute_short=sel_ctx["compute_short"], kb1=self.HSTAR_KB1 * scale,
+            kb2=self.HSTAR_KB2 * scale, n_cand=n_cand, top_k=sel_ctx["top_k"],
+            n_edge=sel_ctx["n_edge"], vmax=sel_ctx["vmax"],
+        )
+
+        def chain(t, thr):
+            res = hstar_retry(di, t[8], t[9], pt, xt, *t[:8], thr, **kw)
+            return (_pack(res[0], res[1], res[2], res[4]),)
+
         with span("sslib.dispatch"):
             hit_parts, hmax_parts = [], []
             for ci, sel in groups:
@@ -885,36 +920,19 @@ class SearchEngine:
                 hits_ref, hmax_ref = sel_ctx["chunks"][ci]
                 hit_parts.append(hits_ref.index_select(0, idx))
                 hmax_parts.append(hmax_ref.index_select(0, idx))
-            hits_r = torch.cat(hit_parts, 0)
-            hmax_r = torch.cat(hmax_parts, 0)
-            res = hstar_retry(
-                self.host.device,
-                hits_r,
-                hmax_r,
-                sel_ctx["pt"],
-                sel_ctx["xt"],
-                self._t(sel_ctx["qtok"][grows]),
-                self._t(sel_ctx["qlens"][grows]),
-                self._t(sel_ctx["nqg"][grows]),
-                self._t(sel_ctx["use_short"][grows]),
-                self._t(sel_ctx["promo_all"][grows]),
-                self._t(sel_ctx["promo_t"][grows]),
-                self._t(sel_ctx["promo_w"][grows]),
-                self._t(lim_arr),
-                np.float32(threshold),
-                compute_short=sel_ctx["compute_short"],
-                kb1=self.HSTAR_KB1 * scale,
-                kb2=self.HSTAR_KB2 * scale,
-                n_cand=n_cand,
-                top_k=sel_ctx["top_k"],
-                n_edge=sel_ctx["n_edge"],
-                vmax=sel_ctx["vmax"],
+            arrays = [sel_ctx[name][grows] for name in (
+                "qtok", "qlens", "nqg", "use_short", "promo_all", "promo_t",
+                "promo_w")]
+            block, = self._run_chain(
+                chain, arrays + [lim_arr], threshold, route="hstar_retry",
+                tables=(di, pt, xt),
+                dev_arrays=(torch.cat(hit_parts, 0), torch.cat(hmax_parts, 0)),
+                **kw,
             )
-            block = _pack(res[0], res[1], res[2], res[4])
         fetched = _fetch([block])
         with span("sslib.emit"):
             counts, ids_b, scores_b, exact = _unpack(
-                fetched, int(res[1].shape[1]), True
+                fetched, (fetched.shape[1] - 2) // 2, True
             )
             exact = exact.tolist()
             rows, positions, still = [], [], []
@@ -1099,17 +1117,17 @@ class SearchEngine:
         }
         hs_kw = dict(hstar=True, kb1=hs_kb1, kb2=hs_kb2, hs_fill=hs_fill)
         bm_slots = slots
+        extra = []  # the gathered route's table rows, an input of each chunk
+        # the route's function, the resident tables before the chunk's
+        # inputs, and its keywords (every one fixed at trace time)
+        kw = dict(compute_short=compute_short, n_cand=n_cand, n_edge=n_edge,
+                  top_k=top_k)
+        graph = True
         if gm is not None:
             gm_hstar = gm_hstar and n_lanes >= 4 * hs_kb2 * _BLK
             self.last_routing["hstar"] = bool(gm_hstar)
-            gm_kw = hs_kw if gm_hstar else {}
-
-            def front(sl, lim_d):
-                return candidates_matmul(
-                    di, gm, pt, xt, *_args(sl, lim_d),
-                    compute_short=compute_short, n_cand=n_cand, n_edge=n_edge,
-                    top_k=top_k, block_sel=block_sel, **gm_kw,
-                )
+            cand_fn, tables = candidates_matmul, (di, gm, pt, xt)
+            kw.update(block_sel=block_sel, **(hs_kw if gm_hstar else {}))
         elif bm is not None:
             bm_table = bm[0]
             self.last_routing.update(
@@ -1117,33 +1135,26 @@ class SearchEngine:
                 fused_bmax=bool(bm_fused and not bm_gather),
                 hstar=bool(bm_hstar),
             )
-            bm_scan = variant == "bitmap_scan"
-            if bm_gather:
-                g_rows, bm_slots, g_gc = gplan
-                self.last_routing["gather_rows"] = int(g_gc)
-                rows_d = self._t(g_rows)
-            bm_kw = {}
+            kw.update(block_sel=block_sel)
             if bm_hstar:
                 self.last_routing.update(kb1=hs_kb1, kb2=hs_kb2)
-                bm_kw = hs_kw
-
-            def front(sl, lim_d):
-                kw = dict(compute_short=compute_short, n_cand=n_cand,
-                          n_edge=n_edge, top_k=top_k, block_sel=block_sel,
-                          **bm_kw)
-                if bm_scan:
-                    return candidates_bitmap(
-                        di, bm_table, pt, xt, *_args(sl, lim_d), **kw
-                    )
-                if bm_gather:
-                    return candidates_bitmap_gather(
-                        di, bm_table, rows_d, pt, xt, *_args(sl, lim_d), **kw
-                    )
-                return candidates_bitmap_mxu(
-                    di, bm_table, pt, xt, *_args(sl, lim_d), fused_bmax=bm_fused,
-                    bmax_blk=self.BITMAP_BMAX_BLK,
-                    kb_lanes=self.BITMAP_KB_LANES, keep_hits=keep_sel, **kw,
-                )
+                kw.update(hs_kw)
+            if variant == "bitmap_scan":
+                # K2w reads its row sums back to size its parts: eager
+                cand_fn, graph = candidates_bitmap, False
+                tables = (di, bm_table, pt, xt)
+            elif bm_gather:
+                g_rows, bm_slots, g_gc = gplan
+                self.last_routing["gather_rows"] = int(g_gc)
+                extra = [g_rows]
+                cand_fn, tables = candidates_bitmap_gather, (di, bm_table, pt, xt)
+            else:
+                cand_fn, tables = candidates_bitmap_mxu, (di, bm_table, pt, xt)
+                kw.update(fused_bmax=bm_fused, bmax_blk=self.BITMAP_BMAX_BLK,
+                          kb_lanes=self.BITMAP_KB_LANES, keep_hits=keep_sel)
+                # the hits kept for the selection retry outlive the chunk,
+                # and a graph's next replay overwrites its outputs: eager
+                graph = not keep_sel
         elif sk is not None:
             inc, tg, wmax_pad, d_log2 = sk
             # superblock count from the TERM width (tg rows), not the
@@ -1154,30 +1165,23 @@ class SearchEngine:
             n_short_cand = min(
                 max(_next_pow2(min(ts, 512), 16), 16), max(ts, 1)
             )
-
-            def front(sl, lim_d):
-                return candidates_sketch(
-                    di, inc, tg, wmax_pad, pt, xt, *_args(sl, lim_d),
-                    d_log2=d_log2, compute_short=compute_short,
-                    n_cand=min(n_cand, kb * 128),
-                    n_short_cand=n_short_cand, ksb=ksb, kb=kb,
-                    n_edge=n_edge, top_k=top_k, packed=sk_packed,
-                )
+            cand_fn, tables = candidates_sketch, (di, inc, tg, wmax_pad, pt, xt)
+            kw.update(d_log2=d_log2, n_cand=min(n_cand, kb * 128),
+                      n_short_cand=n_short_cand, ksb=ksb, kb=kb,
+                      packed=sk_packed)
         else:
+            cand_fn, tables = candidates_runs, (di, pt, xt)
+            kw.update(s_cap=s_cap, block_sel=block_sel)
 
-            def front(sl, lim_d):
-                return candidates_runs(
-                    di, pt, xt, *_args(sl, lim_d), compute_short=compute_short,
-                    s_cap=s_cap, n_cand=n_cand, n_edge=n_edge, top_k=top_k,
-                    block_sel=block_sel,
-                )
-
-        def _args(sl, lim_d):
-            return (
-                qtok_d[sl], qlens_d[sl], slots_d[sl], nqg_d[sl], ushort_d[sl],
-                promo_d[sl], promo_t_d[sl], promo_w_d[sl], lim_d,
-                np.float32(threshold),
-            )
+        def chain(t, thr):
+            # t: qtok, qlens, slots, nqg, use_short, promo, promo_t,
+            # promo_w, limits, then the gathered route's rows
+            if bm_gather:
+                res = cand_fn(di, bm_table, t[9], pt, xt, *t[:9], thr, **kw)
+            else:
+                res = cand_fn(*tables, *t, thr, **kw)
+            block = _pack(res[0], res[1], res[2], res[4])
+            return (block, *res[5:]) if keep_sel else (block,)
 
         with span("sslib.prep"):
             promo_all = np.full((b_all, self.PROMO_KEYS), -1, dtype=np.int32)
@@ -1186,17 +1190,11 @@ class SearchEngine:
                 promo_all[r, : pids.size] = pids
             promo_t, promo_w = self._promo_tables(promo_all)
 
-        # every chunk is queued before any result is fetched; the batch's
-        # arrays go to the device once and chunks slice them there
+        # every chunk is queued before any result is fetched; each chunk's
+        # rows of the batch's arrays go to the device as its chain's inputs
         with span("sslib.dispatch"):
-            qtok_d = self._t(qtok)
-            qlens_d = self._t(qlens)
-            slots_d = self._t(bm_slots)
-            nqg_d = self._t(nqg)
-            ushort_d = self._t(use_short)
-            promo_d = self._t(promo_all)
-            promo_t_d = self._t(promo_t)
-            promo_w_d = self._t(promo_w)
+            batch = (qtok, qlens, bm_slots, nqg, use_short, promo_all, promo_t,
+                     promo_w)
             # the gathered route pads its chunks to 8 queries, tiny runs to
             # a power of two from 1, the others to 16
             min_b = 1 if tiny_runs else (8 if bm_gather else 16)
@@ -1204,13 +1202,12 @@ class SearchEngine:
             for lo in range(0, len(items), step):
                 hi = min(lo + step, len(items))
                 b = _next_pow2(hi - lo, min(step, min_b))
-                lim_d = torch.full(
-                    (b,), min(limit, 2**30), dtype=torch.int32,
-                    device=self.device,
+                lims = np.full((b,), min(limit, 2**30), np.int32)
+                res = self._run_chain(
+                    chain, [x[lo : lo + b] for x in batch] + [lims] + extra,
+                    threshold, route=variant, tables=tables, graph=graph, **kw,
                 )
-                res = front(slice(lo, lo + b), lim_d)
-                block = _pack(res[0], res[1], res[2], res[4])
-                pending.append((lo, hi, block, res[5:] if keep_sel else None))
+                pending.append((lo, hi, res[0], res[1:] if keep_sel else None))
 
         # ONE fetch for every chunk
         fetched = _fetch([blk for _, _, blk, _ in pending])

@@ -7,7 +7,7 @@ PyTorch counterpart of ``stringsearchlib_tpu.utils.metrics``:
   * :class:`QueryMetrics` - a latency reservoir attached to a SearchEngine
     (enable with ``engine.metrics = QueryMetrics()``), giving count / qps /
     p50 / p99, and the sums of the engine's per-call counters (rows that
-    went dense, rows retried);
+    went dense, rows retried, device chains dispatched and replayed);
   * :func:`span` - the engine's host spans (``sslib.<layer>``), recorded
     by ``torch.profiler`` when it is on, on the clock of the card's
     kernels and copies;
@@ -128,6 +128,11 @@ class QueryMetrics:
             out["dense_rows"] = calls["dense_rows"]
         if "retry_fast" in calls:
             out["retried_rows"] = calls["retry_fast"]
+        # device chains dispatched, and of them those replayed from a
+        # captured graph
+        if "chunks" in calls:
+            out["chunks"] = calls["chunks"]
+            out["graph_chunks"] = calls.get("graph_chunks", 0)
         if lat.size:
             out["p50_ms"] = float(np.percentile(lat, 50) * 1e3)
             out["p99_ms"] = float(np.percentile(lat, 99) * 1e3)

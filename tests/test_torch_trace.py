@@ -21,7 +21,8 @@ from stringsearchlib_tpu_torch.search.engine import SearchEngine
 from stringsearchlib_tpu_torch.utils import metrics
 
 CHILDREN = ("sslib.front", "sslib.prep", "sslib.dispatch", "sslib.fetch", "sslib.emit")
-CALL_KEYS = {"queries", "retry_fast", "dense_rows", "emit_slow_keys"}
+CALL_KEYS = {"queries", "retry_fast", "dense_rows", "emit_slow_keys", "chunks",
+             "graph_chunks"}
 
 
 def _corpus(n, seed):
